@@ -1,0 +1,156 @@
+"""Dense decoder: embedding -> [LayerSpec...] -> norm -> LM head.
+
+Layers run in a Python loop over per-layer params (``blocks`` is a
+list). MoE and Mamba layers, scanned stacks and frontend embeddings
+raise ``NotImplementedError`` until their slices are ported.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.specs import (AttentionSpec, LayerSpec, MLPSpec,
+                                      ModelConfig)
+
+
+def _check_dense(spec: LayerSpec) -> None:
+    if not isinstance(spec.mixer, AttentionSpec):
+        raise NotImplementedError(
+            f"{type(spec.mixer).__name__} mixers are not ported yet")
+    if spec.ffn is not None and not isinstance(spec.ffn, MLPSpec):
+        raise NotImplementedError(
+            f"{type(spec.ffn).__name__} feed-forwards are not ported yet")
+
+
+def _check_unrolled(cfg: ModelConfig) -> None:
+    if cfg.scan_layers:
+        raise NotImplementedError(
+            "scanned stacks are not ported; use cfg.replace("
+            "scan_layers=False) or cfg.unrolled()")
+
+
+# ---------------------------------------------------------------- init
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
+               dtype=torch.float32) -> dict:
+    _check_dense(spec)
+    dev = gen.device
+    p: dict[str, Any] = {"norm1": L.init_norm(cfg.norm, cfg.d_model, dtype,
+                                              dev),
+                         "attn": L.init_attention(gen, cfg.d_model,
+                                                  spec.mixer, dtype)}
+    if spec.ffn is not None:
+        p["norm2"] = L.init_norm(cfg.norm, cfg.d_model, dtype, dev)
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, spec.ffn, dtype)
+    return p
+
+
+def init_model(gen: torch.Generator, cfg: ModelConfig,
+               dtype=torch.float32) -> dict:
+    """Random params on ``gen``'s device, drawn from ``gen`` in a fixed
+    order (embedding, head, then the blocks in layer order)."""
+    _check_unrolled(cfg)
+    Vp, d = cfg.padded_vocab, cfg.d_model
+    params: dict[str, Any] = {
+        "embed": {"table": L._randn(gen, (Vp, d), 0.02, dtype)},
+        "final_norm": L.init_norm(cfg.norm, d, dtype, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": L._randn(gen, (d, Vp), d ** -0.5, dtype)}
+    params["blocks"] = [init_block(gen, cfg, cfg.layer(i), dtype)
+                        for i in range(cfg.n_layers)]
+    return params
+
+
+# ---------------------------------------------------------------- cache
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int,
+               dtype=torch.bfloat16, device=None) -> list:
+    _check_unrolled(cfg)
+    out = []
+    for i in range(cfg.n_layers):
+        spec = cfg.layer(i)
+        _check_dense(spec)
+        out.append({"attn": L.init_attention_cache(batch, s_max, spec.mixer,
+                                                   dtype, device)})
+    return out
+
+
+# ---------------------------------------------------------------- forward
+
+def apply_block(block_params: dict, cfg: ModelConfig, spec: LayerSpec,
+                x: torch.Tensor, positions: torch.Tensor,
+                cache: Optional[dict], cache_index, layer: int = 0,
+                mlp_apply=None):
+    """Returns (x, new_cache, aux). ``mlp_apply(block_params, ffn_spec,
+    h, layer)`` replaces the dense MLP when given (the serving
+    block-sparse path)."""
+    _check_dense(spec)
+    h = L.apply_norm(block_params["norm1"], cfg.norm, x)
+    mix, nc = L.apply_attention(
+        block_params["attn"], spec.mixer, h, positions,
+        cache["attn"] if cache is not None else None, cache_index)
+    new_cache = {"attn": nc} if nc is not None else {}
+    x = x + mix
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.ffn is not None:
+        h = L.apply_norm(block_params["norm2"], cfg.norm, x)
+        if mlp_apply is not None:
+            y = mlp_apply(block_params, spec.ffn, h, layer)
+        else:
+            y = L.apply_mlp(block_params["mlp"], spec.ffn, h)
+        x = x + y
+    return x, (new_cache if cache is not None else None), aux
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None,
+            frontend_embeds: Optional[torch.Tensor] = None,
+            cache=None, cache_index=None,
+            compute_dtype=torch.bfloat16, mlp_apply=None):
+    """Returns (logits, new_cache, aux_loss).
+
+    tokens: (B, S) integer tensor on the params' device. cache +
+    cache_index: decode mode (tokens are the new step(s)); cache_index
+    is an int / 0-d tensor or a per-sequence (B,) tensor. The cache is
+    updated in place and also returned. mlp_apply: optional
+    ``(block_params, ffn_spec, x, layer) -> y`` override for FFN layers.
+    """
+    _check_unrolled(cfg)
+    if frontend_embeds is not None:
+        raise NotImplementedError("frontend embeddings are not ported yet")
+    B, S = tokens.shape
+    dev = tokens.device
+    if positions is None:
+        ar = torch.arange(S, device=dev)[None, :]
+        if cache_index is not None:
+            ci = (cache_index.to(dev) if isinstance(cache_index, torch.Tensor)
+                  else torch.tensor(int(cache_index), device=dev))
+            ci = ci[:, None] if ci.dim() else ci
+            positions = (ci + ar).expand(B, S)
+        else:
+            positions = ar.expand(B, S)
+
+    x = params["embed"]["table"][tokens.long()].to(compute_dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    new_cache = [] if cache is not None else None
+    for i in range(cfg.n_layers):
+        ci = cache[i] if cache is not None else None
+        x, nci, a = apply_block(params["blocks"][i], cfg, cfg.layer(i), x,
+                                positions, ci, cache_index, layer=i,
+                                mlp_apply=mlp_apply)
+        aux_total = aux_total + a
+        if cache is not None:
+            new_cache.append(nci)
+
+    x = L.apply_norm(params["final_norm"], cfg.norm, x)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"]["table"].to(compute_dtype).T
+    else:
+        logits = x @ params["lm_head"]["w"].to(compute_dtype)
+    return logits, new_cache, aux_total

@@ -1,0 +1,106 @@
+"""The port's import boundary and its device rule.
+
+``repro_torch`` and ``chip_smoke.py`` run on a machine with PyTorch and
+no JAX: no file may import ``jax`` or the JAX package ``repro``, which
+an AST scan checks and a subprocess with both poisoned in
+``sys.modules`` confirms. Entry points run on CUDA unless asked for the
+CPU, and raise when CUDA is missing.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "src", "repro_torch")
+SMOKE = os.path.join(REPO, "chip_smoke.py")
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    out = [SMOKE]
+    for root, _, files in os.walk(PKG):
+        out.extend(os.path.join(root, f) for f in files if f.endswith(".py"))
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_files_import_no_jax_and_no_repro():
+    files = _port_files()
+    assert len(files) > 30
+    bad = {os.path.relpath(f, REPO): sorted(set(r for r in _imported_roots(f)
+                                                if r in FORBIDDEN))
+           for f in files}
+    assert not {f: r for f, r in bad.items() if r}
+
+
+POISONED = """
+import importlib, pkgutil, runpy, sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None          # any import of them now fails
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+for m in mods:
+    importlib.import_module(m)
+sys.argv = ["chip_smoke.py", "--help"]
+try:
+    runpy.run_path(sys.argv_path, run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+print("imported", len(mods))
+"""
+
+
+def test_port_imports_with_jax_poisoned():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    code = POISONED.replace("sys.argv_path", repr(SMOKE))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "usage: chip_smoke.py" in proc.stdout
+    n = int(proc.stdout.strip().splitlines()[-1].split()[-1])
+    assert n > 30
+
+
+def test_chip_smoke_fails_without_cuda_and_prints_no_result(tmp_path):
+    """Without a card it exits non-zero; and alone in a directory,
+    without the program beside it, it fails too."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(open(SMOKE).read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for script, cwd in ((SMOKE, REPO), (str(alone), str(tmp_path))):
+        proc = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
+
+
+def test_serve_entry_raises_without_cuda_unless_cpu(monkeypatch, capsys):
+    from repro_torch.common.device import resolve_device
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+    serve.main(["--smoke", "--device", "cpu", "--new-tokens", "2",
+                "--prompt-len", "4", "--batch", "2"])
+    assert "generated (2, 6) on cpu" in capsys.readouterr().out
+    for flag in (["--engine", "continuous"], ["--artifact", "x"],
+                 ["--gateway"]):
+        with pytest.raises(SystemExit, match="not yet ported"):
+            serve.main(["--smoke", "--device", "cpu", *flag])
