@@ -5,21 +5,36 @@
 
 Phases, each printing one line of its own:
 
-1. device  — asserts CUDA, prints the card's name and power limit;
-2. build   — builds both kernels from this checkout's sources (nvcc for
-             ``csrc/block_sparse.cu``, Triton for the Wanda reduction);
-3. main    — the port's main path at the full width of llama3-8b (depth
-             cut to 4 layers, random weights from seed 0):
-             ``MosaicPipeline`` on ``recipes/golden-smoke.json`` (profile,
-             POD rank, plan, composite prune, pack), then the static
-             ``Engine`` serves 4 prompts x 32 greedy tokens through the
-             block-sparse kernel. The launch counters are reset just
-             before and read just after; the same pruned params served
-             dense are the reference for logits and tokens;
-4. trace   — ``torch.profiler`` over a warm window of decode steps, sparse
-             and dense: device time by kernel and by op, device idle share;
-5. kernels — each kernel against its plain PyTorch version at the main
-             path's shapes, with times, bounds and a library yardstick.
+1. device     — asserts CUDA, prints the card's name and power limit;
+2. build      — builds every kernel from this checkout's sources: one
+                ``nvcc`` per CUDA source (block-sparse, paged attention,
+                flash attention), all started together, then the Triton
+                JIT of the Wanda reduction;
+3. main       — the port's main path at the full width of llama3-8b
+                (depth cut to 4 layers, random weights from seed 0):
+                ``MosaicPipeline`` on ``recipes/golden-smoke.json``
+                (profile, POD rank, plan, composite prune, pack), then the
+                static ``Engine`` serves 4 prompts x 32 greedy tokens
+                through the block-sparse kernel. The launch counters are
+                reset just before and read just after; the same pruned
+                params served dense are the reference for logits and
+                tokens;
+4. continuous — the pruned bundle saved with ``PrunedArtifact.save``,
+                loaded back and checked equal, then served by the
+                ``ContinuousEngine`` on 12 requests (one 3072-token
+                prompt, four sharing a 64-token prefix) three times: the
+                contiguous pool (the long prompt prefills through the
+                flash-attention kernel), the paged pool on the gather
+                path, and the paged pool through the paged-attention
+                kernel. Counters are reset before and read after each
+                run; tokens must agree across the three runs;
+5. trace      — ``torch.profiler`` over a warm window of decode steps:
+                the static engine sparse and dense, and the paged pool
+                with and without the paged-attention kernel; device time
+                by kernel and by op, device idle share;
+6. kernels    — each kernel against its plain PyTorch version at the
+                shapes of the paths above, with times, bounds and a
+                library yardstick.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -50,6 +65,18 @@ TRACE_STEPS = 8                    # decode steps under the profiler
 L2_FLUSH_BYTES = 256 << 20         # > the H100's 50 MB L2
 BLOCK_SPARSE_TPU = "src/repro/kernels/block_sparse/kernel.py:111"
 WANDA_TPU = "src/repro/kernels/wanda_metric/kernel.py:29"
+PAGED_TPU = "src/repro/kernels/paged_attention/kernel.py:73"
+FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:61"
+# the continuous phase: one fixed set of requests from seed 0
+N_REQUESTS = 12
+LONG_PROMPT = 3072                 # > DENSE_ATTN_MAX, a multiple of 1024
+PREFIX_LEN = 64                    # shared by the PREFIX_UIDS requests
+PREFIX_UIDS = (1, 9, 10, 11)       # the later three admit after the first
+#                                    has registered its blocks
+PROMPT_RANGE = (17, 300)
+NEW_RANGE = (16, 48)
+MAX_SLOTS, MAX_SEQ, BLOCK_SIZE, PREFILL_CHUNK = 8, 3584, 16, 128
+PAGED_TRACE_PROMPT = 256           # the paged trace's 8 prompts
 
 
 def log(phase: str, **kw) -> None:
@@ -118,15 +145,28 @@ def phase_device() -> dict:
 
 
 def phase_build(device) -> dict:
-    """Build both kernels: nvcc for the CUDA library, then the Triton JIT
-    (one tiny launch per mode)."""
+    """Build every kernel: one nvcc per CUDA source, all started together,
+    then the Triton JIT (one tiny launch per mode)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.block_sparse import kernel as bs_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.wanda_metric import kernel as wm_kernel
+    sources = (bs_kernel.SOURCE, pa_kernel.SOURCE, fa_kernel.SOURCE)
+
+    def one(source):
+        t = time.perf_counter()
+        path, report = build.build(source)
+        return source, path, report, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    path, report = build.build(bs_kernel.SOURCE)
-    build.load(bs_kernel.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(one, sources))
+    for source in sources:
+        build.load(source)
     t1 = time.perf_counter()
     w = torch.ones((64, 256), device=device)
     a = torch.ones((64,), device=device)
@@ -134,8 +174,11 @@ def phase_build(device) -> dict:
     wm_kernel.wanda_partials(w, a, torch.ones((1,), device=device))
     sync(device)
     t2 = time.perf_counter()
-    out = {"block_sparse_s": t1 - t0, "block_sparse_lib": str(path),
-           "ptxas": [ln for ln in report.splitlines() if "registers" in ln],
+    out = {"nvcc_s": t1 - t0,
+           "per_source": {src: {"s": dt, "lib": str(path),
+                                "ptxas": [ln for ln in report.splitlines()
+                                          if "registers" in ln]}
+                          for src, path, report, dt in built},
            "wanda_partials_s": t2 - t1, "build_s": t2 - t0}
     log("build", **out)
     return out
@@ -310,13 +353,210 @@ def phase_main(device, gpu: str) -> dict:
     return out
 
 
+def continuous_requests(vocab: int) -> list:
+    """The continuous phase's traffic, one fixed set from seed 0: uid 0
+    has the long prompt, the PREFIX_UIDS share a 64-token prefix under
+    one ``prefix_id``, every other prompt is 17-300 tokens."""
+    import numpy as np
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(1, vocab, PREFIX_LEN).tolist()
+    lo, hi = PROMPT_RANGE
+    reqs = []
+    for uid in range(N_REQUESTS):
+        if uid == 0:
+            prompt = rng.integers(1, vocab, LONG_PROMPT).tolist()
+        elif uid in PREFIX_UIDS:
+            tail = int(rng.integers(lo, hi - PREFIX_LEN + 1))
+            prompt = prefix + rng.integers(1, vocab, tail).tolist()
+        else:
+            prompt = rng.integers(1, vocab, int(rng.integers(lo, hi + 1))
+                                  ).tolist()
+        reqs.append(Request(
+            uid=uid, prompt=prompt,
+            max_new_tokens=int(rng.integers(NEW_RANGE[0], NEW_RANGE[1] + 1)),
+            prefix_id="system" if uid in PREFIX_UIDS else None))
+    return reqs
+
+
+def continuous_config(**kw):
+    import torch
+    from repro_torch.serve.config import ServeConfig
+    return ServeConfig(max_slots=MAX_SLOTS, max_seq=MAX_SEQ,
+                       compute_dtype=torch.float32,
+                       cache_dtype=torch.float32, **kw)
+
+
+def bundle_round_trip(art, device, directory: str) -> tuple:
+    """Save ``art`` into ``directory``, load it back onto the card and
+    hold the loaded params, config, targets and plans equal to ``art``."""
+    import torch
+    from repro_torch.common.tree import iter_paths
+    from repro_torch.core.artifact import PrunedArtifact
+    t0 = time.perf_counter()
+    art.save(directory)
+    t1 = time.perf_counter()
+    n_bytes = sum(os.path.getsize(os.path.join(root, f))
+                  for root, _, files in os.walk(directory) for f in files)
+    loaded = PrunedArtifact.load(directory, device)
+    sync(device)
+    t2 = time.perf_counter()
+    pairs = list(zip(iter_paths(art.params), iter_paths(loaded.params)))
+    if len(pairs) != len(list(iter_paths(art.params))) or any(
+            pa != pb or a.device != b.device or not torch.equal(a, b)
+            for (pa, a), (pb, b) in pairs):
+        raise AssertionError("the loaded bundle's params differ")
+    if loaded.cfg != art.cfg or loaded.targets != art.targets \
+            or set(loaded.packed) != set(art.packed):
+        raise AssertionError("the loaded bundle's config, targets or plan "
+                             "keys differ")
+    for key, p in art.packed.items():
+        q = loaded.packed[key]
+        if (p.block, p.density) != (q.block, q.density) \
+                or not torch.equal(p.counts, q.counts) \
+                or not torch.equal(p.indices, q.indices):
+            raise AssertionError(f"the loaded plan {key} differs")
+    return loaded, {"save_s": t1 - t0, "load_s": t2 - t1,
+                    "bundle_bytes": n_bytes, "leaves": len(pairs),
+                    "plans": len(art.packed)}
+
+
+def serve_continuous(art, device, label: str, **serve_kw) -> dict:
+    """One run of the continuous engine on the phase's requests, counters
+    reset just before and read just after."""
+    from repro_torch.kernels import counters
+    from repro_torch.serve.batching import ContinuousEngine
+    serve = continuous_config(**serve_kw)
+    eng = ContinuousEngine.from_artifact(art, serve)
+    reqs = continuous_requests(art.cfg.vocab)
+    sync(device)
+    counters.reset()
+    finished, stats = eng.run(reqs)
+    sync(device)
+    launches = counters.snapshot()
+    V = art.cfg.vocab
+    by_uid = {f.request.uid: f for f in finished}
+    if sorted(by_uid) != list(range(N_REQUESTS)) or stats.rejected:
+        raise AssertionError(f"{label}: finished {sorted(by_uid)}, "
+                             f"rejected {stats.reject_reasons}")
+    for r in reqs:
+        toks = by_uid[r.uid].tokens
+        if len(toks) != r.max_new_tokens or min(toks) < 0 \
+                or max(toks) >= V:
+            raise AssertionError(f"{label}: uid {r.uid} gave "
+                                 f"{len(toks)} tokens, range "
+                                 f"[{min(toks)}, {max(toks)}]")
+    out = {"label": label, "launches": launches,
+           "tokens": {uid: f.tokens for uid, f in by_uid.items()},
+           "prompts": {r.uid: r.prompt for r in reqs},
+           **stats.to_dict()}
+    if serve.paged:
+        alloc = eng.last_allocator
+        out["free_blocks_after"] = alloc.n_free
+        if alloc.n_free != alloc.n_blocks:
+            raise AssertionError(f"{label}: {alloc.n_blocks - alloc.n_free}"
+                                 f" blocks not returned")
+        if stats.prompt_blocks_shared <= 0:
+            raise AssertionError(f"{label}: no prefix-cache hit")
+    return out
+
+
+def reference_margin(art, device, prompt: list, tokens: list,
+                     t: int) -> float:
+    """Top-2 logit margin of the reference at generated step ``t``: the
+    static engine, teacher-forced on the reference's own tokens."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
+    eng = Engine.from_artifact(art, continuous_config())
+    cache = T.init_cache(eng.cfg, 1, MAX_SEQ, torch.float32, device)
+    with torch.no_grad():
+        logits, cache = eng._step(torch.tensor([prompt], device=device),
+                                  cache, 0)
+        for i in range(t):
+            logits, cache = eng._step(
+                torch.tensor([[tokens[i]]], device=device), cache,
+                len(prompt) + i)
+    top2 = torch.topk(logits[0, :art.cfg.vocab].float(), 2).values
+    return float(top2[0] - top2[1])
+
+
+def compare_runs(art, device, ref: dict, other: dict) -> dict:
+    """Greedy tokens of ``other`` equal ``ref``'s, request by request, up
+    to a step where the reference's top-2 margin is within LOGIT_ATOL."""
+    parted = []
+    for uid, want in sorted(ref["tokens"].items()):
+        got = other["tokens"][uid]
+        t = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+                 None)
+        if t is None:
+            continue
+        margin = reference_margin(art, device, ref["prompts"][uid], want, t)
+        if margin > LOGIT_ATOL:
+            raise AssertionError(
+                f"{other['label']} vs {ref['label']}: uid {uid} parts at "
+                f"step {t} with reference top-2 margin {margin} > "
+                f"{LOGIT_ATOL}")
+        parted.append({"uid": uid, "step": t, "margin": margin})
+    return {"compared": len(ref["tokens"]), "parted_at_near_ties": parted}
+
+
+def phase_continuous(main: dict, device) -> dict:
+    import shutil
+    import tempfile
+    art = main["art"]
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="bundle-", dir=out_dir)
+    try:
+        loaded, bundle = bundle_round_trip(art, device, tmp)
+        log("continuous", bundle=bundle)
+        runs = [serve_continuous(loaded, device, "contiguous"),
+                serve_continuous(loaded, device, "paged-gather",
+                                 block_size=BLOCK_SIZE,
+                                 prefill_chunk=PREFILL_CHUNK),
+                serve_continuous(loaded, device, "paged-kernel",
+                                 block_size=BLOCK_SIZE,
+                                 prefill_chunk=PREFILL_CHUNK,
+                                 paged_kernel=True)]
+        n_layers = loaded.cfg.n_layers
+        ffn_packed = sum(1 for (_, name) in loaded.packed
+                         if name in ("gate", "up", "down"))
+        for r in runs:
+            forwards = r["prefill_chunks"] + r["ticks"]
+            want = {"block_sparse": ffn_packed * forwards}
+            if r["label"] == "contiguous":
+                want["flash_attention"] = n_layers * 1   # one long prompt
+            if r["label"] == "paged-kernel":
+                want["paged_attention"] = n_layers * r["ticks"]
+            r["expected_launches"] = want
+            if r["launches"] != want:
+                raise AssertionError(f"{r['label']}: launches "
+                                     f"{r['launches']}, expected {want}")
+        cmp = {r["label"]: compare_runs(loaded, device, runs[0], r)
+               for r in runs[1:]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = [{k: v for k, v in r.items() if k not in ("tokens", "prompts")}
+               for r in runs]
+    for r in summary:
+        log("continuous", gpu=main["gpu"], **r)
+    log("continuous", gpu=main["gpu"], agreement=cmp)
+    first8 = sorted(runs[0]["tokens"])[:MAX_SLOTS]
+    return {"bundle": bundle, "runs": summary, "agreement": cmp,
+            "decode_lengths": [len(runs[0]["prompts"][u])
+                               + len(runs[0]["tokens"][u]) - 1
+                               for u in first8]}
+
+
 GEMM_MARKS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "splitk")
 
 
 def kernel_class(name: str) -> str:
     n = name.lower()
-    if "block_sparse" in n:
-        return "block_sparse"
+    for k in ("block_sparse", "paged_attention", "flash_attention"):
+        if k in n:
+            return k
     if any(m in n for m in GEMM_MARKS):
         return "gemm"
     if "softmax" in n:
@@ -336,35 +576,29 @@ def _busy_us(spans: list) -> float:
     return busy
 
 
-def trace_decode(art, device, sparse: bool) -> dict:
-    """``TRACE_STEPS`` warm decode steps after a prefill, once under
-    ``torch.profiler`` (CPU and CUDA) and once without it. Device time is
-    summed by kernel class, by kernel name and by aten op with its input
-    shapes; the idle share is 1 - device busy / the unprofiled step."""
+def profile_window(prepare, step, device, label: str) -> dict:
+    """``TRACE_STEPS`` warm decode steps after ``prepare()`` (a prefill),
+    once under ``torch.profiler`` (CPU and CUDA) and once without it.
+    Device time is summed by kernel class, by kernel name and by aten op
+    with its input shapes; the idle share is 1 - device busy / the
+    unprofiled step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import transformer as T
-    from repro_torch.serve.engine import Engine, sample_token
-    eng = Engine.from_artifact(art, serve_config(), sparse=sparse)
-    prompt = torch.as_tensor(prompts(art.cfg.vocab, 2), device=device)
 
     def window(prof=None) -> float:
-        cache = T.init_cache(eng.cfg, BATCH, eng.max_seq,
-                             eng.serve.cache_dtype, device)
-        logits, cache = eng._step(prompt, cache, 0)
-        tok = sample_token(logits, 0.0, eng.cfg.vocab)
-        sync(device)
-        if prof is not None:
-            prof.start()
-        t0 = time.perf_counter()
-        for i in range(TRACE_STEPS):
-            logits, cache = eng._step(tok[:, None], cache, PROMPT_LEN + i)
-            tok = sample_token(logits, 0.0, eng.cfg.vocab)
-        sync(device)
-        ms = (time.perf_counter() - t0) * 1e3 / TRACE_STEPS
-        if prof is not None:
-            prof.stop()
+        with torch.no_grad():
+            state = prepare()
+            sync(device)
+            if prof is not None:
+                prof.start()
+            t0 = time.perf_counter()
+            for _ in range(TRACE_STEPS):
+                step(state)
+            sync(device)
+            ms = (time.perf_counter() - t0) * 1e3 / TRACE_STEPS
+            if prof is not None:
+                prof.stop()
         return ms
 
     window()
@@ -373,9 +607,8 @@ def trace_decode(art, device, sparse: bool) -> dict:
                    record_shapes=True)
     step_ms_profiled = window(prof)
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    out = {"engine": "sparse" if sparse else "dense", "steps": TRACE_STEPS,
-           "step_ms": step_ms, "step_ms_profiled": step_ms_profiled,
-           "device_events": len(dev)}
+    out = {"engine": label, "steps": TRACE_STEPS, "step_ms": step_ms,
+           "step_ms_profiled": step_ms_profiled, "device_events": len(dev)}
     if not dev:
         out["note"] = "the profiler saw no device time: not measured"
         return out
@@ -413,12 +646,87 @@ def trace_decode(art, device, sparse: bool) -> dict:
     return out
 
 
+def trace_decode(art, device, sparse: bool) -> dict:
+    """The static engine: BATCH sequences decoding after a prompt."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine, sample_token
+    eng = Engine.from_artifact(art, serve_config(), sparse=sparse)
+    prompt = torch.as_tensor(prompts(art.cfg.vocab, 2), device=device)
+
+    def prepare() -> dict:
+        cache = T.init_cache(eng.cfg, BATCH, eng.max_seq,
+                             eng.serve.cache_dtype, device)
+        logits, cache = eng._step(prompt, cache, 0)
+        return {"cache": cache, "i": 0,
+                "tok": sample_token(logits, 0.0, eng.cfg.vocab)}
+
+    def step(st: dict) -> None:
+        logits, st["cache"] = eng._step(st["tok"][:, None], st["cache"],
+                                        PROMPT_LEN + st["i"])
+        st["tok"] = sample_token(logits, 0.0, eng.cfg.vocab)
+        st["i"] += 1
+
+    return profile_window(prepare, step, device,
+                          "sparse" if sparse else "dense")
+
+
+def trace_paged(art, device, paged_kernel: bool) -> dict:
+    """The paged pool of the continuous engine: MAX_SLOTS sequences of
+    PAGED_TRACE_PROMPT tokens decoding together, each owning
+    blocks_per_seq arena blocks, through the engine's own steps."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.batching import ContinuousEngine
+    serve = continuous_config(block_size=BLOCK_SIZE,
+                              paged_kernel=paged_kernel)
+    eng = ContinuousEngine.from_artifact(art, serve)
+    B, P = MAX_SLOTS, PAGED_TRACE_PROMPT
+    tables = torch.arange(B * serve.blocks_per_seq, dtype=torch.int32,
+                          device=device).reshape(B, serve.blocks_per_seq)
+    rng = np.random.default_rng(3)
+    tokens = torch.as_tensor(rng.integers(1, art.cfg.vocab, (B, P)),
+                             device=device)
+
+    def prepare() -> dict:
+        pool = T.init_paged_pool(eng.cfg, serve.arena_blocks, BLOCK_SIZE,
+                                 serve.cache_dtype, device)
+        last = []
+        for b in range(B):
+            logits, pool = eng._prefill(
+                eng.params, pool, tokens[b:b + 1], tables[b:b + 1],
+                torch.tensor([0], device=device),
+                torch.tensor([P], device=device))
+            last.append(logits[0, -1])
+        return {"pool": pool, "tok": torch.stack(last).argmax(-1)[:, None],
+                "lens": torch.full((B,), P, device=device)}
+
+    def step(st: dict) -> None:
+        logits, st["pool"] = eng._decode(eng.params, st["pool"], st["tok"],
+                                         st["lens"], tables)
+        st["tok"] = logits.argmax(-1)[:, None]
+        st["lens"] = st["lens"] + 1
+
+    return profile_window(prepare, step, device,
+                          "paged-kernel" if paged_kernel else "paged-gather")
+
+
 def phase_trace(main: dict, device) -> list:
-    out = [trace_decode(main["art"], device, sparse)
-           for sparse in (True, False)]
+    art = main["art"]
+    out = [trace_decode(art, device, sparse) for sparse in (True, False)]
+    out += [trace_paged(art, device, k) for k in (True, False)]
     for t in out:
         log("trace", gpu=main["gpu"], **t)
     return out
+
+
+def _check_close(name: str, got, plain, dtype: str) -> tuple:
+    err = float((got.float() - plain.float()).abs().max())
+    tol = KERNEL_RTOL[dtype] * max(float(plain.float().abs().max()), 1.0)
+    if not err <= tol:
+        raise AssertionError(f"{name} {dtype}: err {err} > {tol}")
+    return err, tol
 
 
 def _block_sparse_case(w, plan_mask, M: int, block: int, dtype, gen,
@@ -437,13 +745,9 @@ def _block_sparse_case(w, plan_mask, M: int, block: int, dtype, gen,
     y = kernel.block_sparse_matmul(x, w, counts, indices, block)
     plain = ref.block_sparse_matmul_ref(x, w, plan_mask, block, block)
     torch.cuda.synchronize()
-    err = float((y.float() - plain.float()).abs().max())
-    scale = float(plain.float().abs().max())
     dname = str(dtype).replace("torch.", "")
-    tol = KERNEL_RTOL[dname] * max(scale, 1.0)
-    if not err <= tol:
-        raise AssertionError(f"block_sparse {label} M={M} b={block} "
-                             f"{dname}: err {err} > {tol}")
+    err, tol = _check_close(f"block_sparse {label} M={M} b={block}", y,
+                            plain, dname)
     if int(counts[0]) != 0 or float(y[:, :block].abs().max()) != 0.0:
         raise AssertionError("the empty column did not come out zero")
     live = int(counts.sum())
@@ -537,15 +841,121 @@ def phase_kernels(main: dict, device) -> tuple:
     return bs_cases, wm_cases
 
 
-def kernel_table(main: dict, bs_cases: list, wm_cases: list) -> dict:
-    """The contract's kernel line: one representative case per kernel
-    (the decode shape of the main path: M=16, f32, the plan's block, the
-    gate projection; the Wanda reduction on (4096, 14336))."""
+def _sdpa(q, k, v, **kw):
+    """The library yardstick: one ``scaled_dot_product_attention`` call
+    on (B, H, S, D) views, the GQA grouping done by the call itself."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+
+
+def _paged_attention_case(spec, lengths: list, dtype, gen, device) -> dict:
+    """Decode attention for B = len(lengths) rows of the pruned model's
+    heads, K/V in a shuffled arena of BLOCK_SIZE blocks."""
+    import torch
+    from repro_torch.kernels.paged_attention import kernel, ref
+    from repro_torch.models.layers import paged_gather
+    n_q, n_kv, D = spec.n_q, spec.n_kv, spec.head_dim
+    B, bs = len(lengths), BLOCK_SIZE
+    max_blocks = MAX_SEQ // bs
+    n_blocks = B * max_blocks
+    k = torch.randn((n_blocks + 1, bs, n_kv, D), generator=gen,
+                    device=device).to(dtype)
+    v = torch.randn((n_blocks + 1, bs, n_kv, D), generator=gen,
+                    device=device).to(dtype)
+    q = torch.randn((B, n_q, D), generator=gen, device=device).to(dtype)
+    tables = torch.randperm(n_blocks, generator=gen, device=device).to(
+        torch.int32).reshape(B, max_blocks)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    out = kernel.paged_attention(q, k, v, tables, lens)
+    plain = ref.paged_attention_ref(q, k, v, tables, lens)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    err, tol = _check_close("paged_attention", out, plain, dname)
+    kview = paged_gather(k, tables).transpose(1, 2)
+    vview = paged_gather(v, tables).transpose(1, 2)
+    mask = (torch.arange(kview.shape[2], device=device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    live = int(lens.sum())
+    s = q.element_size()
+    n_bytes = (2 * live * n_kv * D + 2 * B * n_q * D) * s \
+        + 4 * (tables.numel() + B)
+    b_ms, b_by = bound_ms(n_bytes, 4.0 * live * n_q * D, dname)
+    return {
+        "B": B, "n_q": n_q, "n_kv": n_kv, "D": D, "block": bs,
+        "lengths": lengths, "dtype": dname, "max_abs_err": err, "tol": tol,
+        "ms": time_ms(lambda: kernel.paged_attention(q, k, v, tables, lens)),
+        "plain_ms": time_ms(lambda: ref.paged_attention_ref(
+            q, k, v, tables, lens)),
+        "library_ms": time_ms(lambda: _sdpa(q4, kview, vview,
+                                            attn_mask=mask)),
+        "library": "scaled_dot_product_attention over the pre-gathered "
+                   "view (gather not timed)",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def _flash_attention_case(spec, S: int, dtype, gen, device) -> dict:
+    """Causal prefill attention of one S-token sequence."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel, ref
+    n_q, n_kv, D = spec.n_q, spec.n_kv, spec.head_dim
+    q, k, v = (torch.randn((1, S, h, D), generator=gen,
+                           device=device).to(dtype)
+               for h in (n_q, n_kv, n_kv))
+    out = kernel.flash_attention(q, k, v)
+    plain = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    err, tol = _check_close("flash_attention", out, plain, dname)
+    del plain
+    q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+    n_bytes = (2 * S * n_q * D + 2 * S * n_kv * D) * q.element_size()
+    b_ms, b_by = bound_ms(n_bytes, 4.0 * D * n_q * S * (S + 1) / 2, dname)
+    return {
+        "B": 1, "S": S, "n_q": n_q, "n_kv": n_kv, "D": D, "dtype": dname,
+        "max_abs_err": err, "tol": tol,
+        "ms": time_ms(lambda: kernel.flash_attention(q, k, v), iters=10),
+        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v),
+                            iters=5),
+        "library_ms": time_ms(lambda: _sdpa(q4, k4, v4, is_causal=True),
+                              iters=10),
+        "library": "scaled_dot_product_attention(is_causal=True)",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def phase_attention_kernels(main: dict, cont: dict, device) -> tuple:
+    import torch
+    spec = main["art"].cfg.layer(0).mixer
+    gen = torch.Generator(device=device).manual_seed(2)
+    pa, fa = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        pa.append(_paged_attention_case(spec, cont["decode_lengths"], dtype,
+                                        gen, device))
+        fa.append(_flash_attention_case(spec, LONG_PROMPT, dtype, gen,
+                                        device))
+    for c in pa:
+        log("kernels", kernel="paged_attention", **c)
+    for c in fa:
+        log("kernels", kernel="flash_attention", **c)
+    return pa, fa
+
+
+def kernel_table(main: dict, cont: dict, cases: dict) -> dict:
+    """The contract's kernel line: one representative case per kernel, at
+    f32 — kernel 1 at the main path's decode shape (M=16, the plan's
+    block, the gate projection), the Wanda reduction on (4096, 14336),
+    paged attention at the continuous run's 8 decode lengths, flash
+    attention on the 3072-token prompt."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
-    bs = next(c for c in bs_cases if c["case"] == "layer0.gate"
+    bs = next(c for c in cases["block_sparse"] if c["case"] == "layer0.gate"
               and c["M"] == 16 and c["dtype"] == "float32")
-    wm = wm_cases[0]
+    wm = cases["wanda"][0]
+    pa = next(c for c in cases["paged"] if c["dtype"] == "float32")
+    fa = next(c for c in cases["flash"] if c["dtype"] == "float32")
+    runs = {r["label"]: r["launches"] for r in cont["runs"]}
     return {"kernels": [
         {"name": "block_sparse_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/block_sparse.cu",
@@ -557,6 +967,16 @@ def kernel_table(main: dict, bs_cases: list, wm_cases: list) -> dict:
          "replaces": WANDA_TPU,
          "launches": main["launches"].get("wanda_partials", 0),
          **{k: wm[k] for k in keys}},
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention.cu",
+         "replaces": PAGED_TPU,
+         "launches": runs["paged-kernel"].get("paged_attention", 0),
+         **{k: pa[k] for k in keys}},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": FLASH_TPU,
+         "launches": runs["contiguous"].get("flash_attention", 0),
+         **{k: fa[k] for k in keys}},
     ]}
 
 
@@ -574,14 +994,21 @@ def main() -> int:
     gpu = dev_info["nvidia_smi"]
     build_info = phase_build(device)
     main_info = phase_main(device, gpu)
+    cont_info = phase_continuous(main_info, device)
     trace = phase_trace(main_info, device)
     bs_cases, wm_cases = phase_kernels(main_info, device)
-    table = kernel_table(main_info, bs_cases, wm_cases)
+    pa_cases, fa_cases = phase_attention_kernels(main_info, cont_info,
+                                                 device)
+    table = kernel_table(main_info, cont_info, {
+        "block_sparse": bs_cases, "wanda": wm_cases, "paged": pa_cases,
+        "flash": fa_cases})
 
     record = {"device": dev_info, "build": build_info,
               "main": {k: v for k, v in main_info.items() if k != "art"},
-              "trace": trace,
+              "continuous": cont_info, "trace": trace,
               "block_sparse_cases": bs_cases, "wanda_cases": wm_cases,
+              "paged_attention_cases": pa_cases,
+              "flash_attention_cases": fa_cases,
               "table": table, "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

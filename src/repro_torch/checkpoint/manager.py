@@ -1,0 +1,151 @@
+"""Checkpoints of a param tree, in the JAX package's on-disk layout.
+
+Layout: ``<dir>/step_<N>/arrays.npz`` + ``meta.json``, written to a tmp
+dir and renamed, so a partly written checkpoint is never visible. The
+npz keys are the leaves' paths joined by ``/`` (``blocks/0/attn/q``), as
+the JAX package writes them, so a checkpoint saved by either package
+restores in the other.
+
+bf16 leaves travel as raw 2-byte records (numpy has no bfloat16 without
+``ml_dtypes``): the JAX package writes them through ``np.savez`` as
+``'<V2'``, which loads back as ``'|V2'``. The port reads any 2-byte void
+leaf as ``uint16`` bits of a bfloat16, and writes bf16 leaves the same
+way. Restore fills a tree of the shapes and dtypes it is given, so the
+caller decides the structure (``core.artifact`` derives it from the
+pruned config, as the JAX package does with ``eval_shape``).
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.common.tree import iter_paths, tree_set
+
+
+def _path_key(path) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A leaf as numpy; bf16 as raw 2-byte records."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).view("V2")
+    return t.numpy()
+
+
+def from_numpy(a: np.ndarray, dtype: Optional[torch.dtype] = None,
+               device=None) -> torch.Tensor:
+    """A stored leaf as a tensor; a 2-byte void leaf is bf16 bits."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a if a.flags.writeable else a.copy())
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+
+    # -------------------------------------------------------------- save
+
+    def save(self, step: int, tree: Any,
+             extra_meta: Optional[dict] = None) -> None:
+        """Copy every leaf to the host and write the step (blocking)."""
+        host = {_path_key(p): to_numpy(leaf) for p, leaf in iter_paths(tree)}
+        meta = {"step": step, "time": time.time(), **(extra_meta or {})}
+        final = os.path.join(self.directory, f"step_{step:08d}")
+        tmp = final + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        np.savez(os.path.join(tmp, "arrays.npz"), **host)
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        shutil.rmtree(final, ignore_errors=True)
+        os.rename(tmp, final)
+        self._gc()
+
+    def _gc(self) -> None:
+        steps = self.all_steps()
+        for s in steps[:-self.keep] if self.keep else []:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+    # ----------------------------------------------------------- restore
+
+    def all_steps(self) -> list:
+        return sorted(int(name.split("_")[1])
+                      for name in os.listdir(self.directory)
+                      if name.startswith("step_")
+                      and not name.endswith(".tmp"))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, like: Any, step: Optional[int] = None,
+                device=None) -> Any:
+        """Fill a tree shaped like ``like`` from the checkpoint. Each
+        leaf of ``like`` only needs ``.shape`` and ``.dtype`` (a meta
+        tensor does); the stored array must have that shape, and is cast
+        to that dtype on ``device``."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        path = os.path.join(self.directory, f"step_{step:08d}", "arrays.npz")
+        tree = like
+        with np.load(path) as data:
+            for p, leaf in iter_paths(like):
+                arr = data[_path_key(p)]
+                if tuple(arr.shape) != tuple(leaf.shape):
+                    raise ValueError(f"{_path_key(p)}: stored shape "
+                                     f"{arr.shape}, expected "
+                                     f"{tuple(leaf.shape)}")
+                tree = tree_set(tree, p, from_numpy(arr, leaf.dtype, device))
+        return tree
+
+    def meta(self, step: Optional[int] = None) -> dict:
+        if step is None:
+            step = self.latest_step()
+        with open(os.path.join(self.directory, f"step_{step:08d}",
+                               "meta.json")) as f:
+            return json.load(f)
+
+    # ------------------------------------------------- sidecar documents
+    # Bundles keep JSON documents and array files next to the weight
+    # checkpoint; writes are atomic (tmp + rename) like the checkpoint.
+
+    def save_json(self, name: str, obj: Any) -> None:
+        path = os.path.join(self.directory, name)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(obj, f, indent=2)
+        os.replace(tmp, path)
+
+    def load_json(self, name: str) -> Any:
+        with open(os.path.join(self.directory, name)) as f:
+            return json.load(f)
+
+    def save_arrays(self, name: str, arrays: dict) -> None:
+        path = os.path.join(self.directory, name)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+
+    def load_arrays(self, name: str) -> dict:
+        with np.load(os.path.join(self.directory, name)) as data:
+            return {k: data[k] for k in data.files}
+
+    def has(self, name: str) -> bool:
+        return os.path.exists(os.path.join(self.directory, name))

@@ -38,6 +38,18 @@ def tree_set(tree: Tree, path: Path, value: Any) -> Tree:
     raise TypeError(f"Cannot set path {path!r} in {type(tree)}")
 
 
+def iter_paths(tree: Tree, prefix: Path = ()) -> Iterator[tuple]:
+    """Yield (path, leaf) for every leaf, dict keys in sorted order."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from iter_paths(tree[key], prefix + (key,))
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from iter_paths(sub, prefix + (i,))
+    elif tree is not None:
+        yield prefix, tree
+
+
 def leaves(tree: Tree) -> Iterator[torch.Tensor]:
     if isinstance(tree, dict):
         for key in sorted(tree):

@@ -1,5 +1,5 @@
-"""Serving launcher: prune a random-initialised model with a recipe, then
-serve it on the static engine, dense or through the block-sparse kernel.
+"""Serving launcher: static or continuous batching, dense / pruned /
+bundle-driven.
 
   # the README's main path, on the GPU
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
@@ -9,9 +9,17 @@ serve it on the static engine, dense or through the block-sparse kernel.
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
       --recipe recipes/golden-smoke.json --sparse --device cpu
 
-Runs on ``--device cuda`` (the default) and raises when CUDA is missing,
-unless ``--device cpu`` is given. ``--engine continuous``, ``--artifact``
-and ``--gateway`` are not ported yet and exit with an error.
+  # serve a saved PrunedArtifact (from launch.prune, or the JAX
+  # package's) on the paged pool, decode through the paged kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+      --artifact results/pruned --sparse --engine continuous \
+      --block-size 16 --prefill-chunk 16 --paged-kernel --shared-prefix
+
+``--engine static`` runs the fixed-batch ``Engine``; ``--engine
+continuous`` runs the slot-pool ``ContinuousEngine`` (``--block-size``
+switches it to the paged KV pool). Runs on ``--device cuda`` (the
+default) and raises when CUDA is missing, unless ``--device cpu`` is
+given. ``--gateway`` is not ported yet and exits with an error.
 """
 from __future__ import annotations
 
@@ -19,17 +27,22 @@ import argparse
 import logging
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.registry import (get_config, get_smoke_config,
                                           list_archs)
+from repro_torch.core.artifact import PrunedArtifact
 from repro_torch.core.pipeline import MosaicPipeline
 from repro_torch.core.recipe import CalibrationSpec, PruneRecipe
 from repro_torch.data.pipeline import SyntheticCorpus
 from repro_torch.models import transformer as T
+from repro_torch.serve.batching import ContinuousEngine
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.engine import Engine
+from repro_torch.serve.metrics import latency_percentiles
+from repro_torch.serve.scheduler import Request
 
 
 def _sync(device: torch.device) -> None:
@@ -39,6 +52,14 @@ def _sync(device: torch.device) -> None:
 
 def _load_or_prune(args, device: torch.device) -> tuple:
     """Returns (params, cfg, packed, label)."""
+    if args.artifact:
+        art = PrunedArtifact.load(args.artifact, device)
+        print(f"loaded artifact {args.artifact}: arch={art.recipe.arch} "
+              f"category={art.report.get('category')} "
+              f"{len(art.packed)} saved plans")
+        return art.params, art.cfg, (art.packed if args.sparse else None), \
+            "artifact"
+
     if args.recipe or args.prune > 0:
         if args.recipe:
             recipe = PruneRecipe.load(args.recipe)
@@ -48,11 +69,11 @@ def _load_or_prune(args, device: torch.device) -> tuple:
                 align_channels=8, block=args.sparse_block,
                 calibration=CalibrationSpec(n_samples=8, batch_size=4,
                                             seq_len=args.prompt_len))
-        if not args.sparse:
+        if not (args.sparse or args.save_artifact):
             # plans would be discarded — skip the pack stage entirely
             recipe = recipe.replace(stages=tuple(
                 s for s in recipe.stages if s != "pack"))
-        elif "pack" not in recipe.stages:
+        elif args.sparse and "pack" not in recipe.stages:
             stages = list(recipe.stages)
             at = stages.index("report") if "report" in stages else len(stages)
             recipe = recipe.replace(stages=tuple(
@@ -62,6 +83,9 @@ def _load_or_prune(args, device: torch.device) -> tuple:
         cfg = cfg.replace(scan_layers=False)
         params = T.init_model(torch.Generator(device=device).manual_seed(0), cfg)
         art = MosaicPipeline(recipe).run(params, cfg)
+        if args.save_artifact:
+            art.save(args.save_artifact)
+            print(f"saved PrunedArtifact to {args.save_artifact}")
         print(f"pruned p={recipe.p:.0%} via "
               f"{art.report.get('category') or recipe.category or 'auto'} "
               f"in {art.report.get('pipeline_seconds', 0.0):.1f}s")
@@ -80,6 +104,49 @@ def _load_or_prune(args, device: torch.device) -> tuple:
     return params, cfg, packed, "dense"
 
 
+def _run_continuous(args, params, cfg, packed, corpus, device) -> None:
+    """Mixed-length requests through the slot / block pool."""
+    rng = np.random.default_rng(0)
+    shared = (corpus.batch(99, 1, args.prompt_len)[0].tolist()
+              if args.shared_prefix else [])
+    reqs = []
+    for i in range(args.batch):
+        s0 = int(rng.integers(max(args.prompt_len // 2, 1),
+                              args.prompt_len + 1))
+        prompt = shared + corpus.batch(i, 1, s0)[0, :s0].tolist()
+        reqs.append(Request(uid=i, prompt=prompt,
+                            max_new_tokens=args.new_tokens,
+                            prefix_id="system" if shared else None))
+    max_seq = max(len(r.prompt) for r in reqs) + args.new_tokens
+    if args.block_size:
+        max_seq = -(-max_seq // args.block_size) * args.block_size
+    serve_cfg = ServeConfig(max_slots=args.max_slots, max_seq=max_seq,
+                            block_size=args.block_size,
+                            n_blocks=args.n_blocks,
+                            prefill_chunk=args.prefill_chunk,
+                            compute_dtype=torch.float32,
+                            cache_dtype=torch.float32,
+                            paged_kernel=args.paged_kernel,
+                            scheduler=args.scheduler)
+    eng = ContinuousEngine(params, cfg, serve_cfg, packed=packed)
+    finished, stats = eng.run(reqs, temperature=args.temperature)
+    _sync(device)
+    lat = latency_percentiles(finished)
+    print(f"served {len(finished)} requests, {stats.generated_tokens} tokens "
+          f"on {device} in {stats.wall_s:.2f}s ({stats.tokens_per_s:.1f} "
+          f"tok/s incl. first-call set-up), slot util "
+          f"{stats.slot_utilization:.0%}, p50 {lat['p50']:.0f}ms p99 "
+          f"{lat['p99']:.0f}ms")
+    if serve_cfg.paged:
+        print(f"paged: block_size={serve_cfg.block_size} "
+              f"arena={serve_cfg.arena_blocks} blocks, "
+              f"peak concurrency {stats.peak_concurrency}, "
+              f"{stats.prefill_chunks} prefill chunks, "
+              f"{stats.prompt_blocks_shared} prompt blocks shared "
+              f"(hit rate {stats.prefix_hit_rate:.0%})")
+    print("sample:", finished[0].tokens[:16], "...")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=list_archs(), default="llama3-8b")
@@ -89,10 +156,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine", choices=["static", "continuous"],
                     default="static")
     ap.add_argument("--artifact", default=None, metavar="DIR",
-                    help="serve a saved PrunedArtifact bundle (not ported)")
+                    help="serve a saved PrunedArtifact bundle")
+    ap.add_argument("--save-artifact", default=None, metavar="DIR",
+                    help="with --recipe/--prune: save the bundle here")
     ap.add_argument("--gateway", action="store_true",
                     help="start the HTTP front door (not ported)")
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=4,
+                    help="static batch size / number of requests")
+    ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--prune", type=float, default=0.0)
@@ -102,6 +173,24 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serve pruned MLPs through the block-sparse kernel")
     ap.add_argument("--sparse-block", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--block-size", type=int, default=None, metavar="N",
+                    help="continuous engine: page the KV cache into "
+                         "N-token blocks (default: contiguous slots)")
+    ap.add_argument("--n-blocks", type=int, default=None, metavar="K",
+                    help="paged: arena size in blocks (default: enough "
+                         "for max_slots full sequences)")
+    ap.add_argument("--prefill-chunk", type=int, default=None, metavar="C",
+                    help="paged: split prompt prefill into C-token "
+                         "chunks interleaved with decode ticks")
+    ap.add_argument("--paged-kernel", action="store_true",
+                    help="paged: decode through the paged-attention "
+                         "kernel instead of gathering each slot's "
+                         "logical KV view")
+    ap.add_argument("--shared-prefix", action="store_true",
+                    help="paged demo: prepend one shared system prompt "
+                         "to every request under a common prefix_id")
+    ap.add_argument("--scheduler", default="fifo",
+                    help="admission policy: fifo | priority | slo")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when CUDA is missing) or "
                          "cpu")
@@ -111,12 +200,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     args = build_parser().parse_args(argv)
-    for flag, on in (("--engine continuous", args.engine == "continuous"),
-                     ("--artifact", args.artifact is not None),
-                     ("--gateway", args.gateway)):
-        if on:
-            raise SystemExit(f"{flag} is not yet ported to repro_torch; "
-                             f"use the static engine with --recipe/--prune")
+    if args.gateway:
+        raise SystemExit("--gateway is not yet ported to repro_torch; "
+                         "use --engine static or continuous")
     device = resolve_device(args.device)
 
     params, cfg, packed, source = _load_or_prune(args, device)
@@ -127,6 +213,12 @@ def main(argv=None) -> None:
               f"FLOPs skipped")
 
     corpus = SyntheticCorpus(cfg.vocab, seed=0)
+    if args.engine == "continuous":
+        _run_continuous(args, params, cfg, packed, corpus, device)
+        return
+    if args.block_size:
+        print("note: --block-size is a continuous-engine flag; the static "
+              "engine always uses a contiguous cache")
     serve_cfg = ServeConfig(max_seq=args.prompt_len + args.new_tokens,
                             compute_dtype=torch.float32,
                             cache_dtype=torch.float32)

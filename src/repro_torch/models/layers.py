@@ -4,7 +4,15 @@ Plain functions on tensors in the JAX package's layout: every module is
 an ``init_*`` returning a params dict and an ``apply``-style function.
 Compute happens in the activation dtype (params cast at use; a cast to
 the dtype a tensor already has is free), with norms, softmax and the
-attention scores in f32. The paged-cache helpers come with slice 2.
+attention scores in f32.
+
+Attention reads a contiguous KV cache, or a paged arena through
+per-sequence block tables (``paged_write`` / ``paged_gather``). Two
+branches launch kernels on CUDA tensors: paged decode with
+``paged_kernel`` (``kernels/paged_attention``) and causal prefill longer
+than ``DENSE_ATTN_MAX`` (``kernels/flash_attention``); on CPU tensors
+they run the plain versions, the latter the chunked path the JAX package
+runs.
 """
 from __future__ import annotations
 
@@ -68,7 +76,16 @@ def rope_embed(x: torch.Tensor, positions: torch.Tensor,
 
 # ---------------------------------------------------------------- attention
 
-def _randn(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+def gen_device(gen: Optional[torch.Generator]) -> torch.device:
+    """Where ``init_*`` puts params: the generator's device, or ``meta``
+    (shapes and dtypes only, nothing allocated) when ``gen`` is None."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def _randn(gen: Optional[torch.Generator], shape, scale: float,
+           dtype) -> torch.Tensor:
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, device=gen.device)
             * scale).to(dtype)
 
@@ -85,7 +102,7 @@ def init_attention(gen: torch.Generator, d_model: int, spec: AttentionSpec,
         "o": _randn(gen, (spec.n_q, spec.head_dim, d_model), s_out, dtype),
     }
     if spec.qkv_bias:
-        dev = gen.device
+        dev = gen_device(gen)
         p["q_bias"] = torch.zeros((spec.n_q, spec.head_dim), dtype=dtype,
                                   device=dev)
         p["k_bias"] = torch.zeros((spec.n_kv, spec.head_dim), dtype=dtype,
@@ -144,6 +161,101 @@ def _chunked_causal_attention(q, k, v, positions):
     return torch.cat(outs, dim=1)
 
 
+def _long_causal_attention(q, k, v, positions):
+    """Causal attention for a prefill longer than ``DENSE_ATTN_MAX``,
+    whose positions are ``0 .. S-1`` (a prefill from cache index 0, or
+    with no cache): the flash kernel on CUDA tensors, the chunked plain
+    path on CPU tensors. Both need ``S % Q_CHUNK == 0``."""
+    if q.shape[1] % Q_CHUNK:
+        raise ValueError(f"seq {q.shape[1]} must be a multiple of "
+                         f"{Q_CHUNK} for long causal attention")
+    if q.device.type == "cpu":
+        return _chunked_causal_attention(q, k, v, positions)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+    return flash_attention_bshd(q, k.to(q.dtype), v.to(q.dtype))
+
+
+# ------------------------------------------------------------ paged KV
+
+def _paged_rows(block_tables: torch.Tensor, pos: torch.Tensor,
+                block_size: int) -> torch.Tensor:
+    """Physical arena rows for logical positions ``pos`` (B, S) through
+    per-sequence ``block_tables`` (B, max_blocks)."""
+    logical = (pos // block_size).clamp(0, block_tables.shape[1] - 1)
+    phys = torch.gather(block_tables.long(), 1, logical)
+    return phys * block_size + pos % block_size
+
+
+def paged_write(cache_kv: torch.Tensor, new: torch.Tensor,
+                block_tables: torch.Tensor, start: torch.Tensor,
+                n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scatter ``new`` (B, S, n_kv, D) K/V rows into a paged arena
+    ``cache_kv`` (n_blocks, block_size, n_kv, D) at logical positions
+    ``start[b] + [0, S)`` of each sequence's ``block_tables`` row, in
+    place; returns the arena.
+
+    Rows past ``n_valid[b]`` (right-padded prefill positions) are
+    redirected into the arena's last block — the scratch block the
+    allocator never hands out — so padding never corrupts a live block.
+    """
+    nb, bs = cache_kv.shape[0], cache_kv.shape[1]
+    B, S = new.shape[0], new.shape[1]
+    flat = cache_kv.view(nb * bs, *cache_kv.shape[2:])
+    steps = torch.arange(S, device=new.device)
+    pos = start.long()[:, None] + steps[None, :]
+    rows = _paged_rows(block_tables, pos, bs)
+    if n_valid is not None:
+        ok = steps[None, :] < n_valid.long()[:, None]
+        rows = torch.where(ok, rows, torch.full_like(rows, nb * bs - 1))
+    flat[rows.reshape(-1)] = new.to(flat.dtype).reshape(B * S,
+                                                        *new.shape[2:])
+    return cache_kv
+
+
+def paged_gather(cache_kv: torch.Tensor,
+                 block_tables: torch.Tensor) -> torch.Tensor:
+    """Gather each sequence's logical KV view (B, max_blocks*block_size,
+    n_kv, D) from the paged arena via its block table."""
+    nb, bs = cache_kv.shape[0], cache_kv.shape[1]
+    flat = cache_kv.view(nb * bs, *cache_kv.shape[2:])
+    B, M = block_tables.shape
+    rows = (block_tables.long()[:, :, None] * bs
+            + torch.arange(bs, device=cache_kv.device)[None, None, :])
+    return flat[rows.reshape(B, M * bs)]
+
+
+def _paged_attention(spec: AttentionSpec, q, k, v, positions, cache: dict,
+                     cache_index, block_tables, n_valid, paged_kernel):
+    """The paged branch: scatter this step's K/V rows through the block
+    tables, then attend over the gathered logical view, or, for a decode
+    step with ``paged_kernel``, read the arena in place through the
+    paged-attention op. The view width (max_blocks * block_size) is the
+    contiguous pool's S_max, so the masked softmax sums equal the
+    contiguous path's: rows of unwritten blocks get exact zero
+    probability (f32 exp(-1e30 - max) underflows to 0)."""
+    B, S = q.shape[0], q.shape[1]
+    ci = torch.as_tensor(cache_index, device=q.device).long()
+    if ci.dim() == 0:
+        ci = ci.expand(B)
+    ck = paged_write(cache["k"], k, block_tables, ci, n_valid)
+    cv = paged_write(cache["v"], v, block_tables, ci, n_valid)
+    nv = (n_valid.long() if n_valid is not None
+          else torch.full((B,), S, device=q.device, dtype=torch.long))
+    if paged_kernel and S == 1:
+        from repro_torch.kernels.paged_attention.ops import (
+            paged_attention_decode)
+        out = paged_attention_decode(q, ck, cv, block_tables, ci + nv)
+    else:
+        kview = paged_gather(ck, block_tables)
+        vview = paged_gather(cv, block_tables)
+        T_kv = kview.shape[1]
+        kv_pos = torch.arange(T_kv, device=q.device)[None, :].expand(B, T_kv)
+        out = _dense_attention(q, kview, vview, positions, kv_pos,
+                               causal=spec.causal,
+                               kv_valid=kv_pos < (ci + nv)[:, None])
+    return out, {"k": ck, "v": cv}
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, d) @ (d, H, D) -> (B, S, H, D)."""
     B, S, d = x.shape
@@ -179,12 +291,21 @@ def _cache_index(cache_index):
 
 def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
                     positions: torch.Tensor, cache: Optional[dict] = None,
-                    cache_index=None):
+                    cache_index=None,
+                    block_tables: Optional[torch.Tensor] = None,
+                    n_valid: Optional[torch.Tensor] = None,
+                    paged_kernel: bool = False):
     """Returns (out, new_cache). cache: {'k','v': (B, S_max, n_kv, D)};
     the step's K/V rows are written into it in place, at ``cache_index``
     (an int or 0-d tensor: the whole batch at one offset; a (B,) tensor:
     each sequence at its own length), and the step attends over the
-    whole cache with positions at or past ``cache_index + S`` masked."""
+    whole cache with positions at or past ``cache_index + S`` masked.
+
+    With ``block_tables`` (B, max_blocks) the cache is a paged arena
+    {'k','v': (n_blocks, block_size, n_kv, D)}; ``n_valid`` (B,) masks
+    right-padded positions of a padded (chunked) prefill, and
+    ``paged_kernel`` sends decode steps (S == 1) through the
+    paged-attention op instead of the gather path."""
     dtype = x.dtype
     tap("attn_qkv", x)
     q = _project(x, params["q"].to(dtype))
@@ -200,7 +321,11 @@ def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
 
     new_cache = None
     B, S = x.shape[0], x.shape[1]
-    if cache is not None:
+    if cache is not None and block_tables is not None:
+        out, new_cache = _paged_attention(spec, q, k, v, positions, cache,
+                                          cache_index, block_tables,
+                                          n_valid, paged_kernel)
+    elif cache is not None:
         ci = _cache_index(cache_index)
         ck, cv = cache["k"], cache["v"]
         _write_cache(ck, k, ci)
@@ -208,8 +333,8 @@ def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
         new_cache = {"k": ck, "v": cv}
         if S > DENSE_ATTN_MAX and spec.causal:
             # long prefill: cache content == current tokens (index 0)
-            out = _chunked_causal_attention(q, ck[:, :S], cv[:, :S],
-                                            positions)
+            out = _long_causal_attention(q, ck[:, :S], cv[:, :S],
+                                         positions)
         else:
             S_max = ck.shape[1]
             kv_pos = torch.arange(S_max, device=x.device)[None, :].expand(
@@ -218,7 +343,7 @@ def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
             out = _dense_attention(q, ck, cv, positions, kv_pos,
                                    causal=spec.causal, kv_valid=kv_pos < end)
     elif S > DENSE_ATTN_MAX and spec.causal:
-        out = _chunked_causal_attention(q, k, v, positions)
+        out = _long_causal_attention(q, k, v, positions)
     else:
         out = _dense_attention(q, k, v, positions, positions,
                                causal=spec.causal)
@@ -231,6 +356,16 @@ def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
 def init_attention_cache(batch: int, s_max: int, spec: AttentionSpec,
                          dtype=torch.bfloat16, device=None) -> dict:
     shape = (batch, s_max, spec.n_kv, spec.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_paged_attention_cache(n_blocks: int, block_size: int,
+                               spec: AttentionSpec, dtype=torch.bfloat16,
+                               device=None) -> dict:
+    """A paged KV arena: ``n_blocks`` fixed-size blocks shared by every
+    sequence (the last block is the padding scratch block)."""
+    shape = (n_blocks, block_size, spec.n_kv, spec.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

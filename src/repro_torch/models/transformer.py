@@ -36,7 +36,7 @@ def _check_unrolled(cfg: ModelConfig) -> None:
 def init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                dtype=torch.float32) -> dict:
     _check_dense(spec)
-    dev = gen.device
+    dev = L.gen_device(gen)
     p: dict[str, Any] = {"norm1": L.init_norm(cfg.norm, cfg.d_model, dtype,
                                               dev),
                          "attn": L.init_attention(gen, cfg.d_model,
@@ -50,12 +50,15 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
 def init_model(gen: torch.Generator, cfg: ModelConfig,
                dtype=torch.float32) -> dict:
     """Random params on ``gen``'s device, drawn from ``gen`` in a fixed
-    order (embedding, head, then the blocks in layer order)."""
+    order (embedding, head, then the blocks in layer order). With
+    ``gen=None`` the tree holds ``meta`` tensors: the shapes and dtypes
+    a checkpoint of ``cfg`` restores into, with nothing allocated."""
     _check_unrolled(cfg)
     Vp, d = cfg.padded_vocab, cfg.d_model
     params: dict[str, Any] = {
         "embed": {"table": L._randn(gen, (Vp, d), 0.02, dtype)},
-        "final_norm": L.init_norm(cfg.norm, d, dtype, gen.device),
+        "final_norm": L.init_norm(cfg.norm, d, dtype,
+                                  L.gen_device(gen)),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": L._randn(gen, (d, Vp), d ** -0.5, dtype)}
@@ -78,12 +81,60 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     return out
 
 
+# ------------------------------------------------------------- slot pool
+
+def init_cache_pool(cfg: ModelConfig, max_slots: int, max_seq: int,
+                    dtype=torch.bfloat16, device=None) -> list:
+    """A fixed ``(max_slots, max_seq)`` KV pool for continuous batching:
+    an ordinary cache whose batch axis is the slot axis. Sequences are
+    prefilled into single slots (``write_cache_slot``) and decoded at
+    per-slot offsets (a vector ``cache_index`` in ``forward``)."""
+    return init_cache(cfg, max_slots, max_seq, dtype, device)
+
+
+def init_paged_pool(cfg: ModelConfig, n_blocks: int, block_size: int,
+                    dtype=torch.bfloat16, device=None) -> list:
+    """A paged KV pool: per attention layer one ``(n_blocks + 1,
+    block_size, n_kv, D)`` arena of fixed-size KV blocks shared by every
+    request through per-request block tables (``block_tables`` in
+    ``forward``). The extra last block (index ``n_blocks``) is the
+    scratch block: right-padded prefill positions and inactive decode
+    slots write there; the allocator never hands it out."""
+    _check_unrolled(cfg)
+    pool = []
+    for i in range(cfg.n_layers):
+        spec = cfg.layer(i)
+        _check_dense(spec)
+        pool.append({"attn": L.init_paged_attention_cache(
+            n_blocks + 1, block_size, spec.mixer, dtype, device)})
+    return pool
+
+
+def copy_pool_block(pool: list, src: int, dst: int) -> list:
+    """Copy arena block ``src`` -> ``dst`` in every layer of a paged pool,
+    in place (the device half of copy-on-write); returns the pool."""
+    for layer in pool:
+        for arena in layer["attn"].values():
+            arena[dst].copy_(arena[src])
+    return pool
+
+
+def write_cache_slot(pool: list, row: list, slot: int) -> list:
+    """Copy a batch-1 cache ``row`` (from a B=1 prefill) into slot
+    ``slot`` of ``pool``, in place; returns the pool."""
+    for p_layer, r_layer in zip(pool, row):
+        for name, arena in p_layer["attn"].items():
+            arena[slot].copy_(r_layer["attn"][name][0])
+    return pool
+
+
 # ---------------------------------------------------------------- forward
 
 def apply_block(block_params: dict, cfg: ModelConfig, spec: LayerSpec,
                 x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[dict], cache_index, layer: int = 0,
-                mlp_apply=None):
+                mlp_apply=None, block_tables=None, n_valid=None,
+                paged_kernel: bool = False):
     """Returns (x, new_cache, aux). ``mlp_apply(block_params, ffn_spec,
     h, layer)`` replaces the dense MLP when given (the serving
     block-sparse path)."""
@@ -91,7 +142,9 @@ def apply_block(block_params: dict, cfg: ModelConfig, spec: LayerSpec,
     h = L.apply_norm(block_params["norm1"], cfg.norm, x)
     mix, nc = L.apply_attention(
         block_params["attn"], spec.mixer, h, positions,
-        cache["attn"] if cache is not None else None, cache_index)
+        cache["attn"] if cache is not None else None, cache_index,
+        block_tables=block_tables, n_valid=n_valid,
+        paged_kernel=paged_kernel)
     new_cache = {"attn": nc} if nc is not None else {}
     x = x + mix
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -109,7 +162,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             frontend_embeds: Optional[torch.Tensor] = None,
             cache=None, cache_index=None,
-            compute_dtype=torch.bfloat16, mlp_apply=None):
+            compute_dtype=torch.bfloat16, mlp_apply=None,
+            block_tables: Optional[torch.Tensor] = None,
+            n_valid: Optional[torch.Tensor] = None,
+            paged_kernel: bool = False):
     """Returns (logits, new_cache, aux_loss).
 
     tokens: (B, S) integer tensor on the params' device. cache +
@@ -117,6 +173,11 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     is an int / 0-d tensor or a per-sequence (B,) tensor. The cache is
     updated in place and also returned. mlp_apply: optional
     ``(block_params, ffn_spec, x, layer) -> y`` override for FFN layers.
+    block_tables: (B, max_blocks) — ``cache`` is a paged pool
+    (``init_paged_pool``) read and written through each sequence's
+    table row; ``n_valid`` (B,) masks right-padded prefill positions
+    into the scratch block; ``paged_kernel`` sends paged decode steps
+    (S == 1) through the paged-attention op.
     """
     _check_unrolled(cfg)
     if frontend_embeds is not None:
@@ -143,7 +204,9 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         ci = cache[i] if cache is not None else None
         x, nci, a = apply_block(params["blocks"][i], cfg, cfg.layer(i), x,
                                 positions, ci, cache_index, layer=i,
-                                mlp_apply=mlp_apply)
+                                mlp_apply=mlp_apply,
+                                block_tables=block_tables, n_valid=n_valid,
+                                paged_kernel=paged_kernel)
         aux_total = aux_total + a
         if cache is not None:
             new_cache.append(nci)

@@ -1,10 +1,21 @@
-"""Serving: a static-batch generation engine over the dense forward.
+"""Serving: prefill and decode steps, per-request seeded sampling, and a
+static-batch generation engine over the dense forward.
 
 ``Engine`` prefills the prompts into a contiguous KV cache, then decodes
 one token per step for every sequence. With block plans (``packed``,
 from ``sparse.pack_model``) the FFN projections run through the
 block-sparse kernel via the forward's ``mlp_apply`` hook. The weights
-are cast to the compute dtype once, at construction.
+are cast to the compute dtype once, at construction. The
+continuous-batching engine lives in ``repro_torch.serve.batching``.
+
+``sample_tokens`` / ``request_key`` are the port's counterpart of the
+JAX package's per-request sampling streams. ``jax.random`` streams
+cannot be reproduced in torch, so the port draws from its own
+counter-based stream: the Gumbel noise of vocabulary entry ``v`` for a
+request's ``c``-th token is a hash of (request key, c, v), in 32-bit
+integer arithmetic. A request's draws depend on nothing else — not on
+the batch it shares, its slot, the other rows' temperatures, or the
+device — and greedy rows (temperature <= 0) are an exact argmax.
 """
 from __future__ import annotations
 
@@ -18,6 +29,100 @@ from repro_torch.models.specs import ModelConfig
 from repro_torch.serve.config import ServeConfig
 
 NEG_INF = -1e30
+_M32 = 0xFFFFFFFF
+
+
+def make_prefill_step(cfg: ModelConfig, compute_dtype=torch.bfloat16,
+                      mlp_apply=None):
+    """A prompt batch into a contiguous cache from position 0; returns
+    ``(logits, cache)``."""
+    def prefill_step(params, tokens, cache):
+        logits, cache, _ = T.forward(
+            params, cfg, tokens, cache=cache, cache_index=0,
+            compute_dtype=compute_dtype, mlp_apply=mlp_apply)
+        return logits, cache
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, compute_dtype=torch.bfloat16,
+                    mlp_apply=None):
+    """One decode step; returns ``(last-position logits, cache)``."""
+    def serve_step(params, cache, tokens, cache_index):
+        """tokens: (B, 1). cache_index: an int, or (B,) per-slot lengths
+        (continuous batching)."""
+        logits, cache, _ = T.forward(
+            params, cfg, tokens, cache=cache, cache_index=cache_index,
+            compute_dtype=compute_dtype, mlp_apply=mlp_apply)
+        return logits[:, -1, :], cache
+    return serve_step
+
+
+def _mix32(h):
+    """murmur3's 32-bit finaliser, on Python ints or int64 tensors that
+    hold values in [0, 2**32): every product is masked back to 32 bits,
+    so the tensor version (which wraps at 64 bits) equals the int one."""
+    h = h ^ (h >> 16)
+    h = (h * 0x85EBCA6B) & _M32
+    h = h ^ (h >> 13)
+    h = (h * 0xC2B2AE35) & _M32
+    return h ^ (h >> 16)
+
+
+def _fold32(x: int) -> int:
+    """A non-negative int of any size folded to 32 bits."""
+    x = int(x)
+    h = 0
+    while True:
+        h = _mix32(h ^ (x & _M32))
+        x >>= 32
+        if not x:
+            return h
+
+
+def request_key(seed: Optional[int], uid: int, run_seed: int) -> int:
+    """The request's 32-bit stream key: its own ``seed`` when set (the
+    stream is then independent of batch composition and of the run),
+    else a per-uid fold of the engine-run seed."""
+    if seed is not None:
+        return _mix32(_fold32(seed) ^ 0x5EED5EED)
+    return _mix32(_fold32(run_seed) ^ _mix32(_fold32(uid) ^ 0x9E3779B9))
+
+
+def gumbel_noise(keys: torch.Tensor, counts: torch.Tensor,
+                 width: int) -> torch.Tensor:
+    """(B, width) f32 Gumbel noise of the counter-based stream: row b is
+    the noise of token ``counts[b]`` of the request keyed ``keys[b]``.
+    keys, counts: (B,) int64 tensors."""
+    dev = keys.device
+    step = _mix32(keys[:, None] ^ _mix32(counts[:, None] & _M32))
+    v = torch.arange(width, device=dev, dtype=torch.int64)[None, :]
+    bits = _mix32(step ^ _mix32((v + 0x9E3779B9) & _M32))
+    # the top 24 bits, centred: an f32 in (0, 1) with no rounding
+    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def sample_tokens(logits: torch.Tensor, keys: torch.Tensor,
+                  counts: torch.Tensor, temps, vocab: Optional[int] = None
+                  ) -> torch.Tensor:
+    """Per-row sampling. logits: (B, V); keys, counts: (B,) int64 on the
+    logits' device; temps: (B,) host floats. Rows with ``temps <= 0``
+    are greedy (argmax, first index on ties); the others take the
+    Gumbel-max draw of their own stream, a categorical sample at their
+    temperature. Padded-vocab columns (``>= vocab``) are never picked."""
+    logits = logits.float()
+    if vocab is not None and vocab < logits.shape[-1]:
+        logits = logits.clone()
+        logits[..., vocab:] = NEG_INF
+    greedy = torch.argmax(logits, dim=-1)
+    temps = torch.as_tensor(temps, dtype=torch.float32)
+    if not bool((temps > 0).any()):            # host values: no sync
+        return greedy
+    t = temps.to(logits.device)
+    safe_t = torch.where(t > 0, t, torch.ones_like(t))
+    noisy = logits / safe_t[:, None] + gumbel_noise(keys, counts,
+                                                    logits.shape[-1])
+    return torch.where(t > 0, torch.argmax(noisy, dim=-1), greedy)
 
 
 def make_sparse_mlp_apply(packed: dict):
@@ -65,6 +170,8 @@ class Engine:
         self.device = tree_device(self.params)
         self.max_seq = self.serve.max_seq
         self.mlp_apply = make_sparse_mlp_apply(packed) if packed else None
+        self._serve_step = make_serve_step(cfg, self.serve.compute_dtype,
+                                           self.mlp_apply)
 
     @classmethod
     def from_artifact(cls, artifact, serve: Optional[ServeConfig] = None,
@@ -77,11 +184,9 @@ class Engine:
                    packed=packed or None)
 
     def _step(self, tokens, cache, cache_index):
-        logits, cache, _ = T.forward(
-            self.params, self.cfg, tokens, cache=cache,
-            cache_index=cache_index, compute_dtype=self.serve.compute_dtype,
-            mlp_apply=self.mlp_apply)
-        return logits[:, -1, :], cache
+        """Last-position logits of ``tokens`` (a prompt or one decode
+        token per sequence) written into ``cache`` at ``cache_index``."""
+        return self._serve_step(self.params, cache, tokens, cache_index)
 
     @torch.no_grad()
     def generate(self, prompt_tokens, n_new: int, temperature: float = 0.0,

@@ -12,6 +12,9 @@ A projection whose 2-D fold does not tile by the plan block gets no plan
 (``pack_projection`` returns None): it runs dense and the pack report
 lists it as ``skipped`` with ``reason: "non-tileable"``. MoE expert
 stacks and int8 kept tiles come with their slices.
+
+``plans_to_host`` / ``plans_from_host`` carry the plans through a
+bundle's ``plans.npz`` + ``plans.json``, in the JAX package's format.
 """
 from __future__ import annotations
 
@@ -154,3 +157,47 @@ def flop_savings(packed: dict) -> float:
     if not packed:
         return 0.0
     return float(np.mean([1.0 - p.density for p in packed.values()]))
+
+
+# ----------------------------------------------- plan (de)serialization
+# A bundle keeps the block plans so serve startup rehydrates them instead
+# of packing the weights again. Keys and metadata follow the JAX package:
+# "<layer>:<name>:counts" / ":indices" arrays, {"block", "density"} meta.
+# Expert stacks ("expert") and int8 storage ("quant") come with slices 4
+# and 3; until then a bundle that carries them is refused, never served
+# with those keys dropped.
+
+def plans_to_host(packed: dict) -> tuple:
+    """``(arrays, meta)``: flat npz-able int32 arrays and JSON-able
+    metadata of dense ``PackedProjection`` plans."""
+    arrays: dict = {}
+    meta: dict = {}
+    for (layer, name), p in packed.items():
+        if not isinstance(p, PackedProjection):
+            raise NotImplementedError(
+                f"plan {layer}:{name} is a {type(p).__name__}; only dense "
+                f"PackedProjection plans are ported")
+        key = f"{layer}:{name}"
+        arrays[key + ":counts"] = p.counts.cpu().numpy()
+        arrays[key + ":indices"] = p.indices.cpu().numpy()
+        meta[key] = {"block": p.block, "density": p.density}
+    return arrays, meta
+
+
+def plans_from_host(arrays: dict, meta: dict, device=None) -> dict:
+    """Inverse of :func:`plans_to_host`: the ``PackedProjection`` plans,
+    their arrays on ``device``. Raises on expert or int8 plans."""
+    packed: dict = {}
+    for key, m in meta.items():
+        if m.get("expert") or m.get("quant", "none") != "none":
+            raise NotImplementedError(
+                f"plan {key} is an expert stack or int8 storage; only "
+                f"dense plans are ported")
+        layer, name = key.split(":")
+        packed[(int(layer), name)] = PackedProjection(
+            counts=torch.tensor(arrays[key + ":counts"], dtype=torch.int32,
+                                device=device),
+            indices=torch.tensor(arrays[key + ":indices"],
+                                 dtype=torch.int32, device=device),
+            block=int(m["block"]), density=float(m["density"]))
+    return packed

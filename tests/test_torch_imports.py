@@ -40,6 +40,14 @@ def _imported_roots(path):
 def test_port_files_import_no_jax_and_no_repro():
     files = _port_files()
     assert len(files) > 30
+    rel = {os.path.relpath(f, PKG) for f in files}
+    assert {"checkpoint/manager.py", "launch/prune.py", "serve/batching.py",
+            "serve/paging.py", "serve/scheduler.py", "serve/policies.py",
+            "serve/metrics.py", "kernels/paged_attention/kernel.py",
+            "kernels/paged_attention/ops.py", "kernels/paged_attention/ref.py",
+            "kernels/flash_attention/kernel.py",
+            "kernels/flash_attention/ops.py",
+            "kernels/flash_attention/ref.py"} <= rel
     bad = {os.path.relpath(f, REPO): sorted(set(r for r in _imported_roots(f)
                                                 if r in FORBIDDEN))
            for f in files}
@@ -100,7 +108,12 @@ def test_serve_entry_raises_without_cuda_unless_cpu(monkeypatch, capsys):
     serve.main(["--smoke", "--device", "cpu", "--new-tokens", "2",
                 "--prompt-len", "4", "--batch", "2"])
     assert "generated (2, 6) on cpu" in capsys.readouterr().out
-    for flag in (["--engine", "continuous"], ["--artifact", "x"],
-                 ["--gateway"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            serve.main(["--smoke", "--device", "cpu", *flag])
+    serve.main(["--smoke", "--device", "cpu", "--new-tokens", "2",
+                "--prompt-len", "4", "--batch", "2", "--engine",
+                "continuous", "--block-size", "8", "--paged-kernel"])
+    assert "served 2 requests, 4 tokens on cpu" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="not yet ported"):
+        serve.main(["--smoke", "--device", "cpu", "--gateway"])
+    from repro_torch.launch import prune
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        prune.main(["--smoke", "--p", "0.5"])
