@@ -8,8 +8,8 @@ Phases, each printing one line of its own:
 1. device     — asserts CUDA, prints the card's name and power limit;
 2. build      — builds every kernel from this checkout's sources: one
                 ``nvcc`` per CUDA source (block-sparse, paged attention,
-                flash attention), all started together, then the Triton
-                JIT of the Wanda reduction;
+                flash attention, grouped/ragged block-sparse), all started
+                together, then the Triton JIT of the Wanda reduction;
 3. main       — the port's main path at the full width of llama3-8b
                 (depth cut to 4 layers, random weights from seed 0):
                 ``MosaicPipeline`` on ``recipes/golden-smoke.json``
@@ -34,7 +34,22 @@ Phases, each printing one line of its own:
                 by kernel and by op, device idle share;
 6. kernels    — each kernel against its plain PyTorch version at the
                 shapes of the paths above, with times, bounds and a
-                library yardstick.
+                library yardstick;
+7. moe        — qwen3-moe-30b-a3b at full width (depth cut to 4 layers,
+                random weights from seed 0), after the llama3-8b phases'
+                tensors are freed: ``MosaicPipeline`` on
+                ``recipes/moe-smoke.json`` (expert channels pruned,
+                per-expert plan stacks packed), the bundle saved, reloaded
+                and checked exact, then 4 prompts x 32 greedy tokens on
+                the static engine four ways — default (grouped prefill,
+                ragged decode), grouped only, the per-expert loop through
+                kernel 1, dense — with exact launch counts per run and
+                tokens held to dense; layer 0's MoE output bitwise equal
+                across ragged, grouped and loop; 8 requests on the
+                continuous engine's paged pool through the paged kernel,
+                held to a dense contiguous run; a decode trace, sparse
+                and dense; kernels 6 and 7 against their plain versions
+                at layer 0's gate and down stacks.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -77,6 +92,18 @@ PROMPT_RANGE = (17, 300)
 NEW_RANGE = (16, 48)
 MAX_SLOTS, MAX_SEQ, BLOCK_SIZE, PREFILL_CHUNK = 8, 3584, 16, 128
 PAGED_TRACE_PROMPT = 256           # the paged trace's 8 prompts
+# the MoE phase: qwen3-moe-30b-a3b's 48 layers cut to 4, its own recipe
+MOE_ARCH, MOE_N_PERIODS, MOE_RECIPE = "qwen3-moe-30b-a3b", 4, "moe-smoke.json"
+MOE_REQUESTS = 8
+MOE_PROMPT_RANGE = (65, 200)       # every prefill pads past 64 tokens
+MOE_NEW_RANGE = (16, 32)
+# static-engine ways: (name, sparse, ServeConfig fields)
+MOE_WAYS = (("default", True, {}),                 # grouped + ragged
+            ("grouped", True, {"ragged_moe": False}),
+            ("loop", True, {"group_experts": False, "ragged_moe": False}),
+            ("dense", False, {}))
+GROUPED_TPU = "src/repro/kernels/grouped_block_sparse/kernel.py:75"
+RAGGED_TPU = "src/repro/kernels/grouped_block_sparse/kernel.py:304"
 
 
 def log(phase: str, **kw) -> None:
@@ -153,9 +180,11 @@ def phase_build(device) -> dict:
     from repro_torch.kernels import build
     from repro_torch.kernels.block_sparse import kernel as bs_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.grouped_block_sparse import kernel as gbs_kernel
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.wanda_metric import kernel as wm_kernel
-    sources = (bs_kernel.SOURCE, pa_kernel.SOURCE, fa_kernel.SOURCE)
+    sources = (bs_kernel.SOURCE, pa_kernel.SOURCE, fa_kernel.SOURCE,
+               gbs_kernel.SOURCE)
 
     def one(source):
         t = time.perf_counter()
@@ -271,11 +300,14 @@ def run_main_path(cfg, recipe, device) -> dict:
     }
 
 
-def steady_tokens_per_s(art, device, sparse: bool) -> float:
+def steady_tokens_per_s(art, device, sparse: bool, **serve_kw) -> float:
     """A second, warm generation (launches here are not counted: the
     counters are read before it)."""
+    import dataclasses
     from repro_torch.serve.engine import Engine
-    eng = Engine.from_artifact(art, serve_config(), sparse=sparse)
+    eng = Engine.from_artifact(art, dataclasses.replace(serve_config(),
+                                                        **serve_kw),
+                               sparse=sparse)
     prompt = prompts(art.cfg.vocab, 1)
     sync(device)
     t0 = time.perf_counter()
@@ -389,7 +421,8 @@ def continuous_config(**kw):
 
 def bundle_round_trip(art, device, directory: str) -> tuple:
     """Save ``art`` into ``directory``, load it back onto the card and
-    hold the loaded params, config, targets and plans equal to ``art``."""
+    hold the loaded params, config, targets and plans (expert plan stacks
+    with their densities and path flags) equal to ``art``."""
     import torch
     from repro_torch.common.tree import iter_paths
     from repro_torch.core.artifact import PrunedArtifact
@@ -412,7 +445,11 @@ def bundle_round_trip(art, device, directory: str) -> tuple:
                              "keys differ")
     for key, p in art.packed.items():
         q = loaded.packed[key]
-        if (p.block, p.density) != (q.block, q.density) \
+        flags = ("densities", "group", "ragged")
+        if type(p) is not type(q) \
+                or (p.block, p.density) != (q.block, q.density) \
+                or any(getattr(p, f, None) != getattr(q, f, None)
+                       for f in flags) \
                 or not torch.equal(p.counts, q.counts) \
                 or not torch.equal(p.indices, q.indices):
             raise AssertionError(f"the loaded plan {key} differs")
@@ -421,14 +458,18 @@ def bundle_round_trip(art, device, directory: str) -> tuple:
                     "plans": len(art.packed)}
 
 
-def serve_continuous(art, device, label: str, **serve_kw) -> dict:
-    """One run of the continuous engine on the phase's requests, counters
-    reset just before and read just after."""
+def serve_continuous(art, device, label: str, reqs=None, serve=None,
+                     sparse: bool = True, **serve_kw) -> dict:
+    """One run of the continuous engine on ``reqs`` (default: the
+    continuous phase's requests) under ``serve`` (default:
+    ``continuous_config(**serve_kw)``), counters reset just before and
+    read just after."""
     from repro_torch.kernels import counters
     from repro_torch.serve.batching import ContinuousEngine
-    serve = continuous_config(**serve_kw)
-    eng = ContinuousEngine.from_artifact(art, serve)
-    reqs = continuous_requests(art.cfg.vocab)
+    serve = serve if serve is not None else continuous_config(**serve_kw)
+    eng = ContinuousEngine.from_artifact(art, serve, sparse=sparse)
+    reqs = reqs if reqs is not None else continuous_requests(art.cfg.vocab)
+    n_requests = len(reqs)
     sync(device)
     counters.reset()
     finished, stats = eng.run(reqs)
@@ -436,7 +477,7 @@ def serve_continuous(art, device, label: str, **serve_kw) -> dict:
     launches = counters.snapshot()
     V = art.cfg.vocab
     by_uid = {f.request.uid: f for f in finished}
-    if sorted(by_uid) != list(range(N_REQUESTS)) or stats.rejected:
+    if sorted(by_uid) != list(range(n_requests)) or stats.rejected:
         raise AssertionError(f"{label}: finished {sorted(by_uid)}, "
                              f"rejected {stats.reject_reasons}")
     for r in reqs:
@@ -456,7 +497,8 @@ def serve_continuous(art, device, label: str, **serve_kw) -> dict:
         if alloc.n_free != alloc.n_blocks:
             raise AssertionError(f"{label}: {alloc.n_blocks - alloc.n_free}"
                                  f" blocks not returned")
-        if stats.prompt_blocks_shared <= 0:
+        if any(r.prefix_id for r in reqs) \
+                and stats.prompt_blocks_shared <= 0:
             raise AssertionError(f"{label}: no prefix-cache hit")
     return out
 
@@ -554,6 +596,10 @@ GEMM_MARKS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "splitk")
 
 def kernel_class(name: str) -> str:
     n = name.lower()
+    for k, c in (("grouped_kernel", "grouped_block_sparse"),
+                 ("ragged_kernel", "ragged_block_sparse")):
+        if k in n:
+            return c
     for k in ("block_sparse", "paged_attention", "flash_attention"):
         if k in n:
             return k
@@ -942,12 +988,397 @@ def phase_attention_kernels(main: dict, cont: dict, device) -> tuple:
     return pa, fa
 
 
-def kernel_table(main: dict, cont: dict, cases: dict) -> dict:
+# ------------------------------------------------------------ MoE phase
+
+def moe_config():
+    from repro_torch.configs.registry import get_config
+    full = get_config(MOE_ARCH)
+    return full, full.replace(n_periods=MOE_N_PERIODS, scan_layers=False)
+
+
+def moe_requests(vocab: int) -> list:
+    """The MoE continuous run's traffic from seed 0: every prompt pads to
+    more than RAGGED_TOKENS_MAX tokens, so every prefill runs the grouped
+    kernel and every decode tick (MAX_SLOTS rows) the ragged one."""
+    import numpy as np
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.default_rng(0)
+    lo, hi = MOE_PROMPT_RANGE
+    return [Request(uid=uid,
+                    prompt=rng.integers(1, vocab,
+                                        int(rng.integers(lo, hi + 1))
+                                        ).tolist(),
+                    max_new_tokens=int(rng.integers(MOE_NEW_RANGE[0],
+                                                    MOE_NEW_RANGE[1] + 1)))
+            for uid in range(MOE_REQUESTS)]
+
+
+def moe_static_runs(art, device) -> dict:
+    """4 prompts x NEW_TOKENS greedy tokens on the static engine four
+    ways, the counters reset just before and read just after each."""
+    import dataclasses
+    from repro_torch.kernels import counters
+    from repro_torch.serve.engine import Engine
+    prompt = prompts(art.cfg.vocab, 0)
+    runs = {}
+    for name, sparse, kw in MOE_WAYS:
+        serve = dataclasses.replace(serve_config(), **kw)
+        eng = Engine.from_artifact(art, serve, sparse=sparse)
+        sync(device)
+        counters.reset()
+        t0 = time.perf_counter()
+        toks, logits = eng.generate(prompt, NEW_TOKENS, return_logits=True)
+        sync(device)
+        dt = time.perf_counter() - t0
+        runs[name] = {"tokens": toks, "logits": logits, "generate_s": dt,
+                      "launches": counters.snapshot(),
+                      "tokens_per_s_first": BATCH * NEW_TOKENS / dt}
+    return runs
+
+
+def moe_layer_bitwise(art, device) -> dict:
+    """Layer 0's MoE feed-forward on one decode batch and one prefill
+    batch of random hidden states: ragged, grouped and loop rows must be
+    bitwise equal (the shared tile routine). These launches are checks,
+    not part of a counted run."""
+    import torch
+    from repro_torch.models.moe import apply_moe
+    from repro_torch.serve.sparse import sparse_apply_moe
+    spec = art.cfg.layer(0).ffn
+    bp = art.params["blocks"][0]
+    gen = torch.Generator(device=device).manual_seed(5)
+    out = {}
+    for label, S in (("decode", 1), ("prefill", PROMPT_LEN)):
+        x = torch.randn((BATCH, S, art.cfg.d_model), generator=gen,
+                        device=device)
+        ys = {name: sparse_apply_moe(bp, spec, x, art.packed, 0, **kw)
+              for name, kw in (("ragged", {"ragged_moe": True}),
+                               ("grouped", {"ragged_moe": False}),
+                               ("loop", {"ragged_moe": False,
+                                         "group_experts": False}))}
+        dense, _ = apply_moe(bp["moe"], spec, x)
+        for name in ("grouped", "loop"):
+            if not torch.equal(ys["ragged"], ys[name]):
+                raise AssertionError(
+                    f"MoE layer {label}: ragged and {name} rows differ by "
+                    f"{float((ys['ragged'] - ys[name]).abs().max())}")
+        err = float((ys["ragged"] - dense).abs().max())
+        if not err <= KERNEL_RTOL["float32"] * max(
+                float(dense.abs().max()), 1.0):
+            raise AssertionError(f"MoE layer {label}: sparse vs dense "
+                                 f"{err}")
+        out[label] = {"bitwise_equal": True, "vs_dense_max_abs_err": err}
+    return out
+
+
+def phase_moe(device, gpu: str) -> dict:
+    """qwen3-moe-30b-a3b at full width, 4 layers: prune with the MoE
+    recipe, save and reload the bundle, serve it on the static engine
+    four ways and on the continuous engine's paged pool."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.common.tree import param_count
+    from repro_torch.core.pipeline import MosaicPipeline
+    from repro_torch.core.recipe import PruneRecipe
+    from repro_torch.core.registry import projections
+    from repro_torch.kernels import counters
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.sparse import (RAGGED_TOKENS_MAX,
+                                          PackedExpertProjection,
+                                          flop_savings)
+
+    full, cfg = moe_config()
+    recipe = PruneRecipe.load(os.path.join(HERE, "recipes", MOE_RECIPE))
+    log("moe", arch=cfg.name, d_model=cfg.d_model, vocab=cfg.vocab,
+        layer=str(cfg.layer(0)),
+        depth_cut=f"n_periods {full.n_periods} -> {cfg.n_periods}",
+        recipe=f"recipes/{MOE_RECIPE}")
+    n_projs = len(projections(cfg))
+    counters.reset()
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device=device).manual_seed(0), cfg)
+    n_params = param_count(params)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    art = MosaicPipeline(recipe).run(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    prune_launches = counters.snapshot()
+    want = {"wanda_partials": 2 * n_projs}
+    if prune_launches != want:
+        raise AssertionError(f"moe prune launches {prune_launches}, "
+                             f"expected {want}")
+    stacks = {k: p for k, p in art.packed.items()
+              if isinstance(p, PackedExpertProjection)}
+    if len(stacks) != 3 * cfg.n_layers or not all(
+            p.group and p.ragged for p in stacks.values()):
+        raise AssertionError(f"expected grouped+ragged expert stacks for "
+                             f"gate/up/down of every layer, got "
+                             f"{sorted(stacks)}")
+    st = art.report["stage_seconds"]
+    out = {"gpu": gpu, "init_s": init_s, "params": n_params,
+           "profile_s": st.get("rank"), "plan_s": st.get("plan"),
+           "prune_s": st.get("prune"), "pack_s": st.get("pack"),
+           "prune_launches": prune_launches,
+           "params_before": art.report["params_before"],
+           "params_after": art.report["params_after"],
+           "pruned_layer0": str(art.cfg.layer(0)),
+           "flop_savings": flop_savings(art.packed),
+           "pack": {k: v for k, v in art.report["pack"].items()
+                    if k != "skipped"},
+           "expert_densities_layer0": {
+               k[1]: [min(p.densities), max(p.densities)]
+               for k, p in stacks.items() if k[0] == 0}}
+    log("moe", **out)
+
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="moe-bundle-", dir=out_dir)
+    try:
+        loaded, bundle = bundle_round_trip(art, device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del art
+    torch.cuda.empty_cache()
+    out["bundle"] = bundle
+    log("moe", bundle=bundle)
+
+    runs = moe_static_runs(loaded, device)
+    L = loaded.cfg.n_layers
+    n_exp = loaded.cfg.layer(0).ffn.n_experts
+    prefill = 1 if BATCH * PROMPT_LEN > RAGGED_TOKENS_MAX else 0
+    decode = NEW_TOKENS - 1                # B * 1 tokens <= the limit
+    expected = {
+        "default": {"grouped_block_sparse": 3 * L * prefill,
+                    "grouped_block_sparse_ragged": 3 * L * decode},
+        "grouped": {"grouped_block_sparse": 3 * L * NEW_TOKENS},
+        "loop": {"block_sparse": 3 * L * n_exp * NEW_TOKENS},
+        "dense": {}}
+    dn = runs["dense"]
+    for name, r in runs.items():
+        got = {k: v for k, v in r["launches"].items()
+               if not k.endswith("_experts_computed")}
+        if got != expected[name] or (name != "dense" and not all(
+                expected[name].values())):
+            raise AssertionError(f"moe {name}: launches {r['launches']}, "
+                                 f"expected {expected[name]}")
+        for kname, n in expected[name].items():
+            computed = r["launches"].get(kname + "_experts_computed")
+            if kname != "block_sparse" and not 0 < computed <= n_exp * n:
+                raise AssertionError(f"moe {name}: {computed} experts "
+                                     f"computed over {n} launches")
+        toks, logits = r["tokens"], r["logits"]
+        if tuple(toks.shape) != (BATCH, PROMPT_LEN + NEW_TOKENS) \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"moe {name}: bad output")
+        if name != "dense":
+            r["vs_dense"] = compare_generation(toks, logits, dn["tokens"],
+                                               dn["logits"], PROMPT_LEN,
+                                               LOGIT_ATOL)
+    for name in ("grouped", "loop"):
+        if not torch.equal(runs[name]["tokens"], runs["default"]["tokens"]):
+            raise AssertionError(f"moe: {name} tokens differ from the "
+                                 f"default path's")
+        runs[name]["logits_max_diff_vs_default"] = float(
+            (runs[name]["logits"] - runs["default"]["logits"]).abs().max())
+    out["static"] = {name: {k: v for k, v in r.items()
+                            if k not in ("tokens", "logits")}
+                     for name, r in runs.items()}
+    out["expected_launches"] = expected
+    for name, r in out["static"].items():
+        log("moe", run=name, **r)
+    out["layer_bitwise"] = moe_layer_bitwise(loaded, device)
+    log("moe", layer_bitwise=out["layer_bitwise"])
+
+    ref_run = serve_continuous(
+        loaded, device, "moe-dense-contiguous", moe_requests(loaded.cfg.vocab),
+        continuous_config(), sparse=False)
+    run = serve_continuous(
+        loaded, device, "moe-paged-kernel", moe_requests(loaded.cfg.vocab),
+        continuous_config(block_size=BLOCK_SIZE, paged_kernel=True))
+    want = {"grouped_block_sparse": 3 * L * run["prefill_chunks"],
+            "grouped_block_sparse_ragged": 3 * L * run["ticks"],
+            "paged_attention": L * run["ticks"]}
+    got = {k: v for k, v in run["launches"].items()
+           if not k.endswith("_experts_computed")}
+    if got != want or ref_run["launches"]:
+        raise AssertionError(f"moe continuous: launches {run['launches']} "
+                             f"(dense {ref_run['launches']}), expected "
+                             f"{want}")
+    run["expected_launches"] = want
+    cmp = compare_runs(loaded, device, ref_run, run)
+    out["continuous"] = [{k: v for k, v in r.items()
+                          if k not in ("tokens", "prompts")}
+                         for r in (ref_run, run)]
+    out["continuous_agreement"] = cmp
+    for r in out["continuous"]:
+        log("moe", **r)
+    log("moe", continuous_agreement=cmp)
+    out["art"] = loaded
+    out["tokens_per_s"] = {
+        name: steady_tokens_per_s(loaded, device, sparse, **kw)
+        for name, sparse, kw in MOE_WAYS}
+    log("moe", tokens_per_s=out["tokens_per_s"])
+    return out
+
+
+def _moe_routing(E: int, K: int, G: int, s: int, C: int, gen, device):
+    """Router-shaped assignments: K distinct experts per token from
+    ``gen``, with the capacity ``C`` keep mask and positions."""
+    import torch
+    import torch.nn.functional as F
+    ids = torch.rand((G, s, E), generator=gen, device=device).argsort(
+        dim=-1)[..., :K].reshape(G, s * K)
+    onehot = F.one_hot(ids, E)
+    pos = (torch.cumsum(onehot, dim=1) * onehot).sum(-1) - 1
+    return ids, onehot, pos < C, pos
+
+
+def _grouped_case(w, plan, spec, dtype, gen, label: str) -> dict:
+    """Kernel 6 at an MoE prefill: BATCH groups of PROMPT_LEN tokens
+    routed top-k over the experts, capacity slots (E, G*C, K) with the
+    router's occupancy, through the pruned stack ``w``."""
+    import torch
+    from repro_torch.kernels.grouped_block_sparse import kernel, ops, ref
+    from repro_torch.models.moe import capacity
+    dev = w.device
+    E, K, N = w.shape
+    b = plan.block
+    C = capacity(spec, PROMPT_LEN)
+    ids, onehot, keep, _ = _moe_routing(E, spec.top_k, BATCH, PROMPT_LEN, C,
+                                        gen, dev)
+    count_ge = (onehot * keep[..., None]).sum(dim=1)        # (G, E)
+    row_live = (torch.arange(C, device=dev)[None, None, :]
+                < count_ge.T[:, :, None]).reshape(E, BATCH * C)
+    M = BATCH * C
+    pad = (-M) % 16
+    xs = torch.randn((E, M, K), generator=gen, device=dev)
+    xs = (xs * row_live[..., None]).to(dtype)
+    if pad:
+        xs = torch.nn.functional.pad(xs, (0, 0, 0, pad))
+        row_live = torch.nn.functional.pad(row_live, (0, pad))
+    M = xs.shape[1]
+    w = w.to(dtype).contiguous()
+    work, experts = ops.occupancy(row_live, E, M, M, dev)
+    masks = ref.block_masks_from_plans(plan.counts, plan.indices, K // b)
+    y = ops.grouped_blocksparse_matmul(xs, w, plan.counts, plan.indices, b,
+                                       row_live=row_live)
+    plain = ref.grouped_block_sparse_matmul_ref(xs, w, masks, b, b,
+                                                work=work, block_m=M)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    err, tol = _check_close(f"grouped_block_sparse {label}", y, plain, dname)
+    live_e = work[:, 0] > 0
+    live_tiles = int(plan.counts[live_e].sum())
+    s_ = xs.element_size()
+    n_bytes = (int(live_e.sum()) * M * K + live_tiles * b * b
+               + E * M * N) * s_ \
+        + 4 * (int(live_e.sum()) * (plan.counts.shape[1]
+                                    + plan.indices[0].numel()) + E)
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * M * live_tiles * b * b, dname)
+    return {
+        "case": label, "E": E, "M": M, "K": K, "N": N, "block": b,
+        "capacity": C, "dtype": dname,
+        "experts_computed": int(experts), "live_rows": int(row_live.sum()),
+        "live_tiles": live_tiles, "max_abs_err": err, "tol": tol,
+        "ms": time_ms(lambda: kernel.grouped_block_sparse_matmul(
+            xs, w, plan.counts, plan.indices, work, b, M)),
+        "plain_ms": time_ms(lambda: ref.grouped_block_sparse_matmul_ref(
+            xs, w, masks, b, b, work=work, block_m=M), iters=5),
+        "library_ms": time_ms(lambda: torch.bmm(xs, w)),
+        "library": "torch.bmm over the block-masked dense stack",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def _ragged_case(w, plan, spec, dtype, gen, label: str) -> dict:
+    """Kernel 7 at an MoE decode tick: BATCH tokens routed top-k, packed
+    into 16-row per-expert tiles by the model's own dispatch builder."""
+    import torch
+    from repro_torch.kernels.grouped_block_sparse import kernel, ops, ref
+    from repro_torch.models.moe import (build_ragged_dispatch, capacity,
+                                        ragged_rows_bound)
+    dev = w.device
+    E, K, N = w.shape
+    b = plan.block
+    C = capacity(spec, 1)
+    ids, _, keep, pos = _moe_routing(E, spec.top_k, BATCH, 1, C, gen, dev)
+    m_max = ragged_rows_bound(E, BATCH * spec.top_k)
+    dest, tile_expert, _ = build_ragged_dispatch(ids, keep, pos, E, m_max)
+    src = torch.randn((BATCH * spec.top_k, K), generator=gen, device=dev)
+    xp = torch.zeros((m_max + 1, K), device=dev).index_add_(
+        0, dest.reshape(-1), src)[:m_max].to(dtype).contiguous()
+    w = w.to(dtype).contiguous()
+    masks = ref.block_masks_from_plans(plan.counts, plan.indices, K // b)
+    y = ops.ragged_blocksparse_matmul(xp, w, plan.counts, plan.indices,
+                                      tile_expert, b)
+    plain = ref.ragged_block_sparse_matmul_ref(xp, w, tile_expert, 16,
+                                               masks, b, b)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    err, tol = _check_close(f"ragged_block_sparse {label}", y, plain, dname)
+    te = tile_expert.long()
+    live = te >= 0
+    experts = torch.unique(te[live])
+    live_tiles_w = int(plan.counts[experts].sum())
+    tile_tiles = int(plan.counts[te[live]].sum())     # per 16-row tile
+    s_ = xp.element_size()
+    n_bytes = (int(live.sum()) * 16 * K + live_tiles_w * b * b
+               + m_max * N) * s_ \
+        + 4 * (te.numel() + experts.numel() * (plan.counts.shape[1]
+                                               + plan.indices[0].numel()))
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * 16 * tile_tiles * b * b, dname)
+    x_tiles = xp.reshape(-1, 16, K)
+    w_tiles = w[te.clamp(min=0)]
+    return {
+        "case": label, "E": E, "M": m_max, "K": K, "N": N, "block": b,
+        "tiles": te.numel(), "live_tiles": int(live.sum()),
+        "experts_computed": int(experts.numel()), "dtype": dname,
+        "max_abs_err": err, "tol": tol,
+        "ms": time_ms(lambda: kernel.ragged_block_sparse_matmul(
+            xp, w, plan.counts, plan.indices, tile_expert, b)),
+        "plain_ms": time_ms(lambda: ref.ragged_block_sparse_matmul_ref(
+            xp, w, tile_expert, 16, masks, b, b), iters=5),
+        "library_ms": time_ms(lambda: torch.bmm(x_tiles, w_tiles)),
+        "library": "torch.bmm over each tile's gathered expert weight "
+                   "(gather not timed)",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def phase_moe_kernels(moe: dict, device) -> tuple:
+    """Kernels 6 and 7 against their plain versions at the MoE path's
+    shapes: layer 0's pruned gate and down stacks, f32 and bf16."""
+    import torch
+    art = moe["art"]
+    spec = art.cfg.layer(0).ffn
+    gen = torch.Generator(device=device).manual_seed(6)
+    grouped, ragged = [], []
+    for name in ("gate", "down"):
+        w = art.params["blocks"][0]["moe"][name]
+        plan = art.packed[(0, name)]
+        for dtype in (torch.float32, torch.bfloat16):
+            grouped.append(_grouped_case(w, plan, spec, dtype, gen,
+                                         f"layer0.{name}"))
+            ragged.append(_ragged_case(w, plan, spec, dtype, gen,
+                                       f"layer0.{name}"))
+    for c in grouped:
+        log("kernels", kernel="grouped_block_sparse_matmul", **c)
+    for c in ragged:
+        log("kernels", kernel="ragged_block_sparse_matmul", **c)
+    return grouped, ragged
+
+
+def kernel_table(main: dict, cont: dict, moe: dict, cases: dict) -> dict:
     """The contract's kernel line: one representative case per kernel, at
     f32 — kernel 1 at the main path's decode shape (M=16, the plan's
     block, the gate projection), the Wanda reduction on (4096, 14336),
     paged attention at the continuous run's 8 decode lengths, flash
-    attention on the 3072-token prompt."""
+    attention on the 3072-token prompt, the grouped kernel at an MoE
+    prefill and the ragged kernel at an MoE decode tick (layer 0's gate
+    stack). The MoE kernels' launches are the default static run's."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
     bs = next(c for c in cases["block_sparse"] if c["case"] == "layer0.gate"
@@ -955,6 +1386,10 @@ def kernel_table(main: dict, cont: dict, cases: dict) -> dict:
     wm = cases["wanda"][0]
     pa = next(c for c in cases["paged"] if c["dtype"] == "float32")
     fa = next(c for c in cases["flash"] if c["dtype"] == "float32")
+    gb, rg = (next(c for c in cases[k] if c["case"] == "layer0.gate"
+                   and c["dtype"] == "float32")
+              for k in ("grouped", "ragged"))
+    moe_launches = moe["static"]["default"]["launches"]
     runs = {r["label"]: r["launches"] for r in cont["runs"]}
     return {"kernels": [
         {"name": "block_sparse_matmul", "route": "cuda",
@@ -977,6 +1412,16 @@ def kernel_table(main: dict, cont: dict, cases: dict) -> dict:
          "replaces": FLASH_TPU,
          "launches": runs["contiguous"].get("flash_attention", 0),
          **{k: fa[k] for k in keys}},
+        {"name": "grouped_block_sparse_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/grouped_block_sparse.cu",
+         "replaces": GROUPED_TPU,
+         "launches": moe_launches.get("grouped_block_sparse", 0),
+         **{k: gb[k] for k in keys}},
+        {"name": "ragged_block_sparse_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/grouped_block_sparse.cu",
+         "replaces": RAGGED_TPU,
+         "launches": moe_launches.get("grouped_block_sparse_ragged", 0),
+         **{k: rg[k] for k in keys}},
     ]}
 
 
@@ -999,16 +1444,27 @@ def main() -> int:
     bs_cases, wm_cases = phase_kernels(main_info, device)
     pa_cases, fa_cases = phase_attention_kernels(main_info, cont_info,
                                                  device)
-    table = kernel_table(main_info, cont_info, {
+    del main_info["art"]                 # free the llama3-8b phases' model
+    torch.cuda.empty_cache()
+    moe_info = phase_moe(device, gpu)
+    moe_trace = [trace_decode(moe_info["art"], device, sparse)
+                 for sparse in (True, False)]
+    for t in moe_trace:
+        log("trace", gpu=gpu, model=MOE_ARCH, **t)
+    gb_cases, rg_cases = phase_moe_kernels(moe_info, device)
+    del moe_info["art"]
+    table = kernel_table(main_info, cont_info, moe_info, {
         "block_sparse": bs_cases, "wanda": wm_cases, "paged": pa_cases,
-        "flash": fa_cases})
+        "flash": fa_cases, "grouped": gb_cases, "ragged": rg_cases})
 
     record = {"device": dev_info, "build": build_info,
-              "main": {k: v for k, v in main_info.items() if k != "art"},
-              "continuous": cont_info, "trace": trace,
+              "main": main_info, "continuous": cont_info, "trace": trace,
               "block_sparse_cases": bs_cases, "wanda_cases": wm_cases,
               "paged_attention_cases": pa_cases,
               "flash_attention_cases": fa_cases,
+              "moe": moe_info, "moe_trace": moe_trace,
+              "grouped_block_sparse_cases": gb_cases,
+              "ragged_block_sparse_cases": rg_cases,
               "table": table, "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

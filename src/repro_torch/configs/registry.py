@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-Only the dense llama-style decoder of the main path is registered; the
-other architectures of the JAX package come with the slices that port
-their layers (MoE, SSM, hybrid, VLM, audio)."""
+Registered: the dense llama-style decoder of the main path and the
+routed-expert MoE decoder (qwen3-moe). The other architectures of the
+JAX package come with the slices that port their layers (shared-expert
+MoE, SSM, hybrid, VLM, audio)."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +11,7 @@ import importlib
 from repro_torch.models.specs import ModelConfig, scaled_down
 
 ARCHS = {
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     # the paper's own model family
     "llama3-8b": "repro_torch.configs.llama3_8b",
 }

@@ -17,7 +17,7 @@ either package loads in the other::
       config.json               # post-pruning ModelConfig
       recipe.json               # the PruneRecipe that produced this
       targets.json              # [[layer, name, target], ...]
-      plans.npz + plans.json    # block plans (dense PackedProjection)
+      plans.npz + plans.json    # block plans and expert plan stacks
       report.json               # provenance, timings, pack coverage
 """
 from __future__ import annotations
@@ -46,7 +46,7 @@ class PrunedArtifact:
     cfg: ModelConfig
     recipe: PruneRecipe
     targets: dict                 # {(layer, name): sparsity target}
-    packed: dict                  # {(layer, name): PackedProjection}
+    packed: dict                  # {(layer, name): plan or expert stack}
     report: dict                  # JSON-safe provenance + timings
     info: dict = dataclasses.field(default_factory=dict)  # raw (not saved)
 

@@ -94,16 +94,22 @@ def stage_prune(ctx: PipelineContext) -> None:
 
 @register_stage("pack")
 def stage_pack(ctx: PipelineContext) -> None:
-    """Post-Pruning Optimizer: block plans for the serving kernel, one
-    per tileable projection (the report's ``skipped`` list carries
-    ``reason: "non-tileable"``). int8 kept-tile packing (``recipe.quant``)
-    comes with slice 3."""
+    """Post-Pruning Optimizer: block plans for the serving kernels — one
+    per tileable dense projection, a per-expert plan stack per MoE
+    expert weight (the report's ``skipped`` list carries ``reason:
+    "non-tileable"``). ``recipe.group_experts`` marks the expert stacks
+    for the grouped one-launch kernel (else the per-expert launch loop),
+    ``recipe.ragged_moe`` for the ragged dispatch at decode sizes; the
+    flags ride inside each plan through the bundle. int8 kept-tile
+    packing (``recipe.quant``) comes with its slice."""
     from repro_torch.serve.sparse import pack_model_with_report
     if ctx.recipe.quant != "none":
         raise NotImplementedError(f"quant={ctx.recipe.quant!r} packing is "
                                   f"not ported yet")
     ctx.packed, ctx.pack_report = pack_model_with_report(
-        ctx.params, ctx.cfg, block=ctx.recipe.block)
+        ctx.params, ctx.cfg, block=ctx.recipe.block,
+        group_experts=ctx.recipe.group_experts,
+        ragged_moe=ctx.recipe.ragged_moe)
 
 
 @register_stage("report")

@@ -11,7 +11,10 @@ important => pruned less.
 :func:`global_rank` folds each projection to 2-D and scores it with the
 Wanda-metric kernel (``kernels/wanda_metric``); on CPU tensors that op
 runs its plain version, which computes exactly
-``outlier_ratio(weight_metric(...))``.
+``outlier_ratio(weight_metric(...))``. An MoE expert stack ``(E, in,
+out)`` folds to ``(E·in, out)`` with its ``(E, in)`` norms flattened:
+the ratio counts outliers over all its experts at once, or expert by
+expert with ``per_expert``.
 """
 from __future__ import annotations
 
@@ -54,9 +57,10 @@ def fold_2d(w: torch.Tensor, anorm: torch.Tensor,
     """A dense projection as ``(w2 (K, N), anorm (K,))``: input axes
     first and flattened, output axes flattened. ``in_axes (0,)`` gives
     ``(w.shape[0], -1)``; the o-projection ``(H, D, d)`` gives
-    ``(H·D, d)`` with anorm ``(H·D,)``."""
+    ``(H·D, d)`` with anorm ``(H·D,)``; an expert stack ``(E, in, out)``
+    with anorm ``(E, in)`` gives ``(E·in, out)`` with anorm ``(E·in,)``."""
     if proj.expert_axis is not None:
-        raise NotImplementedError("MoE expert projections are not ported yet")
+        return w.reshape(w.shape[0] * w.shape[1], -1), anorm.reshape(-1)
     if proj.in_axes == (0,):
         return w.reshape(w.shape[0], -1), anorm
     if proj.in_axes == (0, 1):
@@ -65,16 +69,26 @@ def fold_2d(w: torch.Tensor, anorm: torch.Tensor,
 
 
 def global_rank(params, cfg: ModelConfig, anorms: dict,
-                alpha: float = DEFAULT_ALPHA) -> dict:
+                alpha: float = DEFAULT_ALPHA,
+                per_expert: bool = False) -> dict:
     """Algorithm 1: the Mosaic Parameter Ranking Controller core.
 
     Returns {(layer, proj_name): normalised rank}. Normalisation maps the
-    outlier ratios to mean 1.0 so the planner composes with any p.
+    outlier ratios to mean 1.0 so the planner composes with any p. An
+    expert stack gets one rank over all its experts, or with
+    ``per_expert`` an (E,) array of ranks, one per expert.
     """
     raw: dict = {}
     for proj in projections(cfg):
-        w2, a2 = fold_2d(tree_get(params, proj.path),
-                         anorms[(proj.layer, proj.tap)], proj)
+        w = tree_get(params, proj.path)
+        anorm = anorms[(proj.layer, proj.tap)]
+        if proj.expert_axis is not None and per_expert:
+            raw[proj.key] = np.array([
+                float(wanda_ops.outlier_ratio(w[e].contiguous(), anorm[e],
+                                              alpha))
+                for e in range(w.shape[0])])
+            continue
+        w2, a2 = fold_2d(w, anorm, proj)
         raw[proj.key] = float(wanda_ops.outlier_ratio(w2.contiguous(), a2,
                                                       alpha))
     return normalize_rank(raw)

@@ -1,11 +1,11 @@
-"""Structured projection pruning: physically remove attention heads and
-feed-forward channels (Fig. 4).
+"""Structured projection pruning: physically remove attention heads,
+feed-forward channels and MoE expert channels (Fig. 4).
 
 Kept group counts stay multiples of a configurable alignment, so pruned
 widths stay tile friendly. Scores are post-mask magnitudes by default —
 heads hollowed out by unstructured pruning rank lowest, which is exactly
-the paper's composite synergy. MoE (expert channels, whole experts) and
-Mamba (SSD heads) branches come with their slices.
+the paper's composite synergy. Whole-expert removal (``expert_frac``)
+and Mamba (SSD heads) branches come with their slices.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core.registry import register_category
 from repro_torch.models.specs import (AttentionSpec, LayerSpec, MLPSpec,
-                                      ModelConfig)
+                                      ModelConfig, MoESpec)
 
 
 def _aligned_keep(total: int, frac: float, align: int, min_keep: int) -> int:
@@ -66,7 +66,7 @@ def prune_attention(block: dict, spec: AttentionSpec, frac: float,
     return new_block, new_spec
 
 
-# ---------------------------------------------------------------- mlp
+# ---------------------------------------------------------------- mlp / moe
 
 def prune_mlp(block: dict, spec: MLPSpec, frac: float,
               align_channels: int) -> tuple:
@@ -83,6 +83,36 @@ def prune_mlp(block: dict, spec: MLPSpec, frac: float,
         new_mlp["gate"] = mlp["gate"].index_select(1, kept)
     new_block = dict(block)
     new_block["mlp"] = new_mlp
+    return new_block, dataclasses.replace(spec, d_ff=int(keep))
+
+
+def prune_moe(block: dict, spec: MoESpec, frac: float,
+              align_channels: int) -> tuple:
+    """Remove the same number of hidden channels from every expert, each
+    expert keeping its own highest-mass channels (in index order)."""
+    moe = block["moe"]
+    cs = _abs32(moe["up"]).sum(dim=1) + _abs32(moe["down"]).sum(dim=2)
+    if spec.gated:                                        # (E, d_ff)
+        cs = cs + _abs32(moe["gate"]).sum(dim=1)
+    keep = _aligned_keep(spec.d_ff, frac, align_channels,
+                         min(align_channels, spec.d_ff))
+    kept = torch.sort(torch.argsort(-cs, dim=1, stable=True)[:, :keep],
+                      dim=1).values                       # (E, keep)
+    E = kept.shape[0]
+
+    def take_out(w):          # (E, d, d_ff) -> (E, d, keep)
+        return torch.gather(w, 2, kept[:, None, :].expand(E, w.shape[1],
+                                                          keep))
+
+    new_moe = dict(moe)
+    new_moe["up"] = take_out(moe["up"])
+    new_moe["down"] = torch.gather(                       # (E, keep, d)
+        moe["down"], 1, kept[:, :, None].expand(E, keep,
+                                                moe["down"].shape[2]))
+    if spec.gated:
+        new_moe["gate"] = take_out(moe["gate"])
+    new_block = dict(block)
+    new_block["moe"] = new_moe
     return new_block, dataclasses.replace(spec, d_ff=int(keep))
 
 
@@ -123,11 +153,12 @@ def prune_structured(params, cfg: ModelConfig, fractions: dict,
         f = fractions.get((i, "heads"), 0.0)
         block, mixer = prune_attention(block, spec.mixer, f, align_heads)
         ffn = spec.ffn
-        if isinstance(ffn, MLPSpec):
+        if isinstance(ffn, MoESpec):
+            f = fractions.get((i, "ffn"), 0.0)
+            block, ffn = prune_moe(block, ffn, f, align_channels)
+        elif isinstance(ffn, MLPSpec):
             f = fractions.get((i, "ffn"), 0.0)
             block, ffn = prune_mlp(block, ffn, f, align_channels)
-        elif ffn is not None:
-            raise NotImplementedError("MoE channel pruning is not ported yet")
         new_blocks.append(block)
         new_specs.append(LayerSpec(mixer=mixer, ffn=ffn))
     new_params = dict(params)

@@ -126,11 +126,16 @@ def _sel_wanda(w, proj, target, ctx):
 
 @register_selector("wanda_block")
 def _sel_wanda_block(w, proj, target, ctx):
-    if proj.expert_axis is not None:
-        raise NotImplementedError("per-expert block masks are not ported yet")
     scores = score_projection(w, proj, "wanda", ctx.anorms)
     # mask tile == pack tile, so every pruned tile is a skipped tile
-    mask = block_mask_from_metric(scores, target, block=ctx.block)
+    if proj.expert_axis is not None:
+        # per-expert tiles: the pack stage plans each expert's 2-D fold
+        # independently, so the mask tiles each expert independently too
+        mask = torch.stack([
+            block_mask_from_metric(scores[e], target, block=ctx.block)
+            for e in range(scores.shape[0])])
+    else:
+        mask = block_mask_from_metric(scores, target, block=ctx.block)
     return torch.where(mask, w, torch.zeros_like(w)), mask
 
 

@@ -18,7 +18,8 @@
 // Numerics: f32 inputs are multiplied with plain FFMA (no TF32), bf16
 // inputs are widened to f32 on load; the sum is kept in f32 registers,
 // one K-block after another in plan order, and written once per output
-// tile (a column with count 0 writes zeros).
+// tile (a column with count 0 writes zeros). The tile routine lives in
+// block_sparse_tile.cuh, shared with the grouped and ragged MoE kernels.
 //
 // Bound on the H100: at decode (M = 16 after padding) the kernel must
 // read the live weight tiles once, density * K * N * 4 bytes in f32, at
@@ -28,27 +29,12 @@
 // K-block's load is not overlapped with the previous block's FMAs, at
 // prefill each M-tile re-reads the weight tiles (from L2 when it can),
 // and bf16 runs on the FFMA units instead of the tensor cores (wgmma).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "block_sparse_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 16;  // output rows per thread block
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+using block_sparse_tile::kRows;
+using block_sparse_tile::kThreads;
 
 template <typename T, int BN>
 __global__ void __launch_bounds__(kThreads)
@@ -56,58 +42,10 @@ block_sparse_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const int* __restrict__ counts,
                     const int* __restrict__ indices, T* __restrict__ y,
                     int M, int K, int N, int max_nnz) {
-  static_assert(kThreads % BN == 0, "a row group spans the N-block");
-  constexpr int KC = BN < 32 ? BN : 32;  // K rows staged per chunk
-  constexpr int RG = kThreads / BN;      // row groups
-  constexpr int RPT = kRows / RG;        // output rows per thread
-  static_assert(RPT >= 1 && kRows % RG == 0, "rows split over groups");
-
-  __shared__ float xs[kRows][KC];
-  __shared__ float ws[KC][BN];
-
   const int n = blockIdx.x;
-  const int m0 = blockIdx.y * kRows;
-  const int tid = threadIdx.x;
-  const int c = tid % BN;
-  const int rg = tid / BN;
-  const size_t col0 = static_cast<size_t>(n) * BN;
-
-  float acc[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
-
-  const int count = counts[n];
-  const int* idx = indices + static_cast<size_t>(n) * max_nnz;
-  for (int s = 0; s < count; ++s) {
-    const int kb = idx[s];
-    for (int k0 = 0; k0 < BN; k0 += KC) {
-      const size_t kbase = static_cast<size_t>(kb) * BN + k0;
-      for (int i = tid; i < kRows * KC; i += kThreads) {
-        const int r = i / KC, kk = i % KC;
-        const int row = m0 + r;
-        xs[r][kk] = row < M
-            ? to_f32(x[static_cast<size_t>(row) * K + kbase + kk]) : 0.f;
-      }
-      for (int i = tid; i < KC * BN; i += kThreads) {
-        const int kk = i / BN, cc = i % BN;
-        ws[kk][cc] = to_f32(w[(kbase + kk) * N + col0 + cc]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        const float b = ws[kk][c];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-          acc[i] = fmaf(xs[rg + i * RG][kk], b, acc[i]);
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = m0 + rg + i * RG;
-    if (row < M) y[static_cast<size_t>(row) * N + col0 + c] = from_f32<T>(acc[i]);
-  }
+  block_sparse_tile::tile<T, BN>(
+      x, w, indices + static_cast<size_t>(n) * max_nnz, counts[n], y,
+      blockIdx.y * kRows, M, K, N, static_cast<size_t>(n) * BN);
 }
 
 template <typename T>

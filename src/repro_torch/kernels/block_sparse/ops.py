@@ -11,14 +11,15 @@ from repro_torch.kernels.block_sparse import kernel, ref
 
 def block_mask_from_weight_mask(mask: torch.Tensor, block_k: int,
                                 block_n: int) -> torch.Tensor:
-    """Elementwise keep-mask (K, N) -> block-level nonzero map
-    (K/bk, N/bn), on the mask's device."""
-    K, N = mask.shape
+    """Elementwise keep-mask (..., K, N) -> block-level nonzero map
+    (..., K/bk, N/bn), on the mask's device (leading axes, such as an
+    expert stack's, are kept)."""
+    *lead, K, N = mask.shape
     if K % block_k or N % block_n:
         raise ValueError(f"mask {tuple(mask.shape)} does not tile by "
                          f"({block_k}, {block_n})")
-    m = mask.reshape(K // block_k, block_k, N // block_n, block_n)
-    return m.any(dim=3).any(dim=1)
+    m = mask.reshape(*lead, K // block_k, block_k, N // block_n, block_n)
+    return m.any(dim=-1).any(dim=-2)
 
 
 def plan_blocks(block_mask) -> tuple:

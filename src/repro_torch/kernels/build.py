@@ -2,8 +2,9 @@
 
 Each source under ``repro_torch/csrc`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library at first use. The library's file name
-carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+carries a hash of the source, the headers beside it (``*.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.
 
 The build directory is ``$REPRO_TORCH_BUILD_DIR`` when that is set;
 otherwise ``build/repro_torch/`` at the root of the checkout when the
@@ -67,6 +68,8 @@ def nvcc_path() -> str:
 def library_path(source: str) -> Path:
     src = CSRC / source
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -9,6 +9,10 @@ bundle-driven.
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
       --recipe recipes/golden-smoke.json --sparse --device cpu
 
+  # an MoE bundle: grouped prefill, ragged decode
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+      --artifact results/moe --sparse --ragged-moe --device cpu
+
   # serve a saved PrunedArtifact (from launch.prune, or the JAX
   # package's) on the paged pool, decode through the paged kernel
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
@@ -17,9 +21,12 @@ bundle-driven.
 
 ``--engine static`` runs the fixed-batch ``Engine``; ``--engine
 continuous`` runs the slot-pool ``ContinuousEngine`` (``--block-size``
-switches it to the paged KV pool). Runs on ``--device cuda`` (the
-default) and raises when CUDA is missing, unless ``--device cpu`` is
-given. ``--gateway`` is not ported yet and exits with an error.
+switches it to the paged KV pool). MoE expert plans run through the
+grouped kernel unless ``--no-group-experts`` (one kernel-1 launch per
+expert); ``--ragged-moe`` sends decode-sized batches through the ragged
+kernel. Runs on ``--device cuda`` (the default) and raises when CUDA is
+missing, unless ``--device cpu`` is given. ``--gateway`` is not ported
+yet and exits with an error.
 """
 from __future__ import annotations
 
@@ -104,6 +111,13 @@ def _load_or_prune(args, device: torch.device) -> tuple:
     return params, cfg, packed, "dense"
 
 
+def _moe_knobs(args) -> dict:
+    """``ServeConfig``'s MoE fields from the flags (None follows the
+    flags the plans carry)."""
+    return {"group_experts": False if args.no_group_experts else None,
+            "ragged_moe": True if args.ragged_moe else None}
+
+
 def _run_continuous(args, params, cfg, packed, corpus, device) -> None:
     """Mixed-length requests through the slot / block pool."""
     rng = np.random.default_rng(0)
@@ -127,7 +141,7 @@ def _run_continuous(args, params, cfg, packed, corpus, device) -> None:
                             compute_dtype=torch.float32,
                             cache_dtype=torch.float32,
                             paged_kernel=args.paged_kernel,
-                            scheduler=args.scheduler)
+                            scheduler=args.scheduler, **_moe_knobs(args))
     eng = ContinuousEngine(params, cfg, serve_cfg, packed=packed)
     finished, stats = eng.run(reqs, temperature=args.temperature)
     _sync(device)
@@ -172,6 +186,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sparse", action="store_true",
                     help="serve pruned MLPs through the block-sparse kernel")
     ap.add_argument("--sparse-block", type=int, default=16)
+    ap.add_argument("--no-group-experts", action="store_true",
+                    help="fall back to one block-sparse launch per MoE "
+                         "expert instead of the grouped one-launch kernel")
+    ap.add_argument("--ragged-moe", action="store_true",
+                    help="MoE decode ticks: pack only routed tokens into "
+                         "ragged expert batches (skips empty experts) "
+                         "instead of full capacity-slot batches")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--block-size", type=int, default=None, metavar="N",
                     help="continuous engine: page the KV cache into "
@@ -221,7 +242,7 @@ def main(argv=None) -> None:
               "engine always uses a contiguous cache")
     serve_cfg = ServeConfig(max_seq=args.prompt_len + args.new_tokens,
                             compute_dtype=torch.float32,
-                            cache_dtype=torch.float32)
+                            cache_dtype=torch.float32, **_moe_knobs(args))
     eng = Engine(params, cfg, serve_cfg, packed=packed)
     prompt = corpus.batch(0, args.batch, args.prompt_len)[:, :args.prompt_len]
     _sync(device)

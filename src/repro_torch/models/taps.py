@@ -16,9 +16,13 @@ import torch
 _COLLECTOR: Optional[list] = None
 
 
-def tap(name: str, x: torch.Tensor, channel_axes=(-1,)) -> None:
+def tap(name: str, x: torch.Tensor, channel_axes=(-1,),
+        expert_first: bool = False) -> None:
     """Record the per-channel sum of squares of ``x`` over all axes but
-    ``channel_axes`` (the projection's input-feature axes)."""
+    ``channel_axes`` (the projection's input-feature axes). With
+    ``expert_first`` the first kept axis is the expert axis of an MoE
+    slot tensor (per-expert statistics); the sums are the same, the flag
+    matters only to the Gram modes, which are not ported."""
     if _COLLECTOR is None:
         return
     keep = sorted(a % x.dim() for a in channel_axes)

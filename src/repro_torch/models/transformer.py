@@ -1,8 +1,9 @@
 """Dense decoder: embedding -> [LayerSpec...] -> norm -> LM head.
 
 Layers run in a Python loop over per-layer params (``blocks`` is a
-list). MoE and Mamba layers, scanned stacks and frontend embeddings
-raise ``NotImplementedError`` until their slices are ported.
+list). A layer's feed-forward is a dense MLP or an MoE layer
+(``models/moe.py``). Mamba layers, scanned stacks and frontend
+embeddings raise ``NotImplementedError`` until their slices are ported.
 """
 from __future__ import annotations
 
@@ -11,15 +12,17 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.specs import (AttentionSpec, LayerSpec, MLPSpec,
-                                      ModelConfig)
+                                      ModelConfig, MoESpec)
 
 
-def _check_dense(spec: LayerSpec) -> None:
+def _check_ported(spec: LayerSpec) -> None:
     if not isinstance(spec.mixer, AttentionSpec):
         raise NotImplementedError(
             f"{type(spec.mixer).__name__} mixers are not ported yet")
-    if spec.ffn is not None and not isinstance(spec.ffn, MLPSpec):
+    if spec.ffn is not None and not isinstance(spec.ffn,
+                                               (MLPSpec, MoESpec)):
         raise NotImplementedError(
             f"{type(spec.ffn).__name__} feed-forwards are not ported yet")
 
@@ -35,7 +38,7 @@ def _check_unrolled(cfg: ModelConfig) -> None:
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                dtype=torch.float32) -> dict:
-    _check_dense(spec)
+    _check_ported(spec)
     dev = L.gen_device(gen)
     p: dict[str, Any] = {"norm1": L.init_norm(cfg.norm, cfg.d_model, dtype,
                                               dev),
@@ -43,7 +46,10 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                                                   spec.mixer, dtype)}
     if spec.ffn is not None:
         p["norm2"] = L.init_norm(cfg.norm, cfg.d_model, dtype, dev)
-        p["mlp"] = L.init_mlp(gen, cfg.d_model, spec.ffn, dtype)
+        if isinstance(spec.ffn, MoESpec):
+            p["moe"] = MOE.init_moe(gen, cfg.d_model, spec.ffn, dtype)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg.d_model, spec.ffn, dtype)
     return p
 
 
@@ -75,7 +81,7 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     out = []
     for i in range(cfg.n_layers):
         spec = cfg.layer(i)
-        _check_dense(spec)
+        _check_ported(spec)
         out.append({"attn": L.init_attention_cache(batch, s_max, spec.mixer,
                                                    dtype, device)})
     return out
@@ -104,7 +110,7 @@ def init_paged_pool(cfg: ModelConfig, n_blocks: int, block_size: int,
     pool = []
     for i in range(cfg.n_layers):
         spec = cfg.layer(i)
-        _check_dense(spec)
+        _check_ported(spec)
         pool.append({"attn": L.init_paged_attention_cache(
             n_blocks + 1, block_size, spec.mixer, dtype, device)})
     return pool
@@ -136,9 +142,9 @@ def apply_block(block_params: dict, cfg: ModelConfig, spec: LayerSpec,
                 mlp_apply=None, block_tables=None, n_valid=None,
                 paged_kernel: bool = False):
     """Returns (x, new_cache, aux). ``mlp_apply(block_params, ffn_spec,
-    h, layer)`` replaces the dense MLP when given (the serving
-    block-sparse path)."""
-    _check_dense(spec)
+    h, layer)`` replaces the feed-forward, dense MLP or MoE, when given
+    (the serving block-sparse path; it drops the MoE aux loss)."""
+    _check_ported(spec)
     h = L.apply_norm(block_params["norm1"], cfg.norm, x)
     mix, nc = L.apply_attention(
         block_params["attn"], spec.mixer, h, positions,
@@ -152,6 +158,8 @@ def apply_block(block_params: dict, cfg: ModelConfig, spec: LayerSpec,
         h = L.apply_norm(block_params["norm2"], cfg.norm, x)
         if mlp_apply is not None:
             y = mlp_apply(block_params, spec.ffn, h, layer)
+        elif isinstance(spec.ffn, MoESpec):
+            y, aux = MOE.apply_moe(block_params["moe"], spec.ffn, h)
         else:
             y = L.apply_mlp(block_params["mlp"], spec.ffn, h)
         x = x + y
@@ -172,7 +180,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     cache_index: decode mode (tokens are the new step(s)); cache_index
     is an int / 0-d tensor or a per-sequence (B,) tensor. The cache is
     updated in place and also returned. mlp_apply: optional
-    ``(block_params, ffn_spec, x, layer) -> y`` override for FFN layers.
+    ``(block_params, ffn_spec, x, layer) -> y`` override for FFN layers
+    (``ffn_spec`` an ``MLPSpec`` or ``MoESpec``).
     block_tables: (B, max_blocks) — ``cache`` is a paged pool
     (``init_paged_pool``) read and written through each sequence's
     table row; ``n_valid`` (B,) masks right-padded prefill positions

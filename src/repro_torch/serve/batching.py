@@ -96,7 +96,9 @@ class ContinuousEngine:
         self.prefill_multiple = serve.prefill_multiple
         # per-stage observability: request latencies + tick gauges
         self.metrics = MetricsRegistry()
-        mlp_apply = make_sparse_mlp_apply(packed) if packed else None
+        mlp_apply = (make_sparse_mlp_apply(packed, serve.group_experts,
+                                           serve.ragged_moe)
+                     if packed else None)
         if serve.paged:
             self._prefill = make_paged_prefill_step(
                 cfg, serve.compute_dtype, mlp_apply)

@@ -6,8 +6,10 @@ device decides whether a kernel launches (CUDA) or its plain version
 runs (CPU). ``block_size`` selects the continuous engine's KV pool:
 ``None`` keeps the contiguous per-slot pool, an int switches to the
 paged pool (fixed-size KV blocks + per-request block tables, prefix
-sharing, chunked prefill — see ``repro_torch.serve.paging``). The MoE
-and int8 knobs come with the slices that port them.
+sharing, chunked prefill — see ``repro_torch.serve.paging``).
+``group_experts`` / ``ragged_moe`` pick the MoE expert matmuls' path
+(None follows the flags the plans carry). The int8 knob comes with its
+slice.
 """
 from __future__ import annotations
 
@@ -37,6 +39,11 @@ class ServeConfig:
     #                                 interleave with decode ticks
     #                                 (block_size multiple); None = one
     #                                 prefill per prompt
+    group_experts: Optional[bool] = None  # MoE: grouped one-launch
+    #                                 kernel (None follows plan flags)
+    ragged_moe: Optional[bool] = None  # MoE: ragged (routed-tokens-only)
+    #                                 dispatch at decode batch sizes
+    #                                 (None follows plan flags)
     paged_kernel: bool = False      # paged decode: the paged-attention
     #                                 kernel instead of the gather path
     #                                 (needs block_size)

@@ -125,13 +125,22 @@ def sample_tokens(logits: torch.Tensor, keys: torch.Tensor,
     return torch.where(t > 0, torch.argmax(noisy, dim=-1), greedy)
 
 
-def make_sparse_mlp_apply(packed: dict):
+def make_sparse_mlp_apply(packed: dict,
+                          group_experts: Optional[bool] = None,
+                          ragged_moe: Optional[bool] = None):
     """``mlp_apply`` hook routing FFN layers through the block-sparse
-    kernel wherever ``packed`` has a plan."""
+    kernels wherever ``packed`` has a plan: dense MLPs per projection,
+    MoE layers through their expert plan stacks — one grouped launch for
+    all experts by default (``group_experts=None`` follows each plan's
+    ``group`` flag), E per-expert launches with ``group_experts=False``,
+    and the ragged dispatch at decode batch sizes with ``ragged_moe``
+    (None follows each plan's ``ragged`` flag)."""
     from repro_torch.serve.sparse import sparse_apply_ffn
 
     def mlp_apply(block_params, spec, x, layer):
-        return sparse_apply_ffn(block_params, spec, x, packed, layer)
+        return sparse_apply_ffn(block_params, spec, x, packed, layer,
+                                group_experts=group_experts,
+                                ragged_moe=ragged_moe)
     return mlp_apply
 
 
@@ -156,9 +165,10 @@ def sample_token(logits: torch.Tensor, temperature: float = 0.0,
 class Engine:
     """Minimal static-batch generation engine.
 
-    ``packed`` (from ``sparse.pack_model``) routes the MLP projections
-    through the block-sparse kernel — the Mosaic fast path. The engine
-    runs on the params' device.
+    ``packed`` (from ``sparse.pack_model``) routes the FFN projections
+    through the block-sparse kernels — the Mosaic fast path; the MoE
+    paths follow ``serve.group_experts`` / ``serve.ragged_moe``. The
+    engine runs on the params' device.
     """
 
     def __init__(self, params, cfg: ModelConfig,
@@ -169,7 +179,9 @@ class Engine:
         self.params = cast_tree(params, self.serve.compute_dtype)
         self.device = tree_device(self.params)
         self.max_seq = self.serve.max_seq
-        self.mlp_apply = make_sparse_mlp_apply(packed) if packed else None
+        self.mlp_apply = (make_sparse_mlp_apply(
+            packed, self.serve.group_experts, self.serve.ragged_moe)
+            if packed else None)
         self._serve_step = make_serve_step(cfg, self.serve.compute_dtype,
                                            self.mlp_apply)
 

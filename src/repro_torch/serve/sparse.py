@@ -1,17 +1,24 @@
 """Block-sparse serving path: run a Mosaic-pruned (``wanda_block`` /
-composite) model's FFN projections through the block-sparse kernel.
+composite) model's FFN projections through the block-sparse kernels.
 
 ``pack_model`` walks the pruned projections once (the PC's Post-Pruning
-Optimizer step, Fig. 6 #10) and builds the per-projection block plans;
-``sparse_apply_ffn`` executes the feed-forward with zero tiles skipped.
-A plan's ``counts``/``indices`` are int32 tensors on the weight's device,
-moved there once at pack time. The block map is computed on the device
-and only the small ``(K/b, N/b)`` map travels to the host.
+Optimizer step, Fig. 6 #10) and builds the per-projection block plans,
+including a per-expert plan stack for every MoE expert weight;
+``sparse_apply_ffn`` executes the feed-forward with zero tiles skipped
+(``sparse_apply_mlp`` for dense-MLP layers, ``sparse_apply_moe`` inside
+the MoE dispatch). MoE expert matmuls default to the grouped kernel —
+all E experts in one launch, driven by the stacked plan — with the
+per-expert launch loop through kernel 1 as the ``group_experts=False``
+fallback, and the ragged kernel for decode-sized batches with
+``ragged_moe``. A plan's ``counts``/``indices`` are int32 tensors on the
+weight's device, moved there once at pack time. The block maps are
+computed on the device and only the small ``(K/b, N/b)`` maps travel to
+the host.
 
 A projection whose 2-D fold does not tile by the plan block gets no plan
 (``pack_projection`` returns None): it runs dense and the pack report
-lists it as ``skipped`` with ``reason: "non-tileable"``. MoE expert
-stacks and int8 kept tiles come with their slices.
+lists it as ``skipped`` with ``reason: "non-tileable"``. int8 kept tiles
+come with their slice.
 
 ``plans_to_host`` / ``plans_from_host`` carry the plans through a
 bundle's ``plans.npz`` + ``plans.json``, in the JAX package's format.
@@ -30,6 +37,7 @@ from repro_torch.core.registry import projections
 from repro_torch.kernels.block_sparse.ops import (block_mask_from_weight_mask,
                                                   blocksparse_matmul,
                                                   plan_blocks)
+from repro_torch.kernels.grouped_block_sparse import ops as grouped_ops
 from repro_torch.models.specs import ModelConfig, MoESpec
 
 
@@ -40,6 +48,38 @@ class PackedProjection:
     indices: torch.Tensor      # (N/bn, max_nnz) int32, edge-padded
     block: int
     density: float             # fraction of nonzero tiles
+
+
+@dataclasses.dataclass
+class PackedExpertProjection:
+    """A leading-``E`` stack of per-expert block plans for one MoE
+    projection. Experts share ``max_nnz`` (each expert's index row is
+    edge-padded; the kernels stop at ``counts``), so one stacked plan
+    covers the whole expert group even when densities diverge.
+
+    ``group`` selects the serving path: True runs all E experts in one
+    grouped kernel launch off this stack; False falls back to E
+    per-expert kernel-1 launches through the :meth:`expert` views.
+    ``ragged`` additionally sends decode-sized batches through the
+    ragged (routed-tokens-only) kernel; the same stacked plan drives
+    both."""
+    counts: torch.Tensor       # (E, N/bn) int32, on the weight's device
+    indices: torch.Tensor      # (E, N/bn, max_nnz) int32, edge-padded
+    block: int
+    density: float             # mean nonzero-tile fraction over experts
+    densities: tuple           # per-expert nonzero-tile fractions
+    group: bool = True         # serve through the grouped kernel
+    ragged: bool = False       # ragged dispatch for decode-sized batches
+
+    @property
+    def n_experts(self) -> int:
+        return int(self.counts.shape[0])
+
+    def expert(self, e: int) -> PackedProjection:
+        """The expert-``e`` plan that kernel 1 takes."""
+        return PackedProjection(counts=self.counts[e],
+                                indices=self.indices[e], block=self.block,
+                                density=float(self.densities[e]))
 
 
 def pack_projection(w: torch.Tensor,
@@ -58,30 +98,65 @@ def pack_projection(w: torch.Tensor,
         density=float(bm.mean()))
 
 
-def pack_model_with_report(params, cfg: ModelConfig,
-                           block: int = 128) -> tuple:
-    """Returns ``(packed, report)``: ``{(layer, name): PackedProjection}``
-    for every tileable projection, plus a summary of what was not
-    packed, so serve-time coverage is auditable from the report."""
+def pack_expert_projection(w: torch.Tensor, block: int = 128,
+                           group: bool = True, ragged: bool = False
+                           ) -> Optional[PackedExpertProjection]:
+    """Per-expert block plans for an ``(E, K, ...)`` MoE weight. Each
+    expert's 2-D fold is planned independently; index rows are padded to
+    the largest ``max_nnz`` across experts so the stack is rectangular.
+    Returns None when an expert's fold does not tile evenly."""
+    E = w.shape[0]
+    w3 = w.reshape(E, w.shape[1], -1)
+    K, N = w3.shape[1], w3.shape[2]
+    if K % block or N % block:
+        return None
+    bms = block_mask_from_weight_mask(w3 != 0, block, block).cpu().numpy()
+    plans = [plan_blocks(bm) for bm in bms]
+    counts, indices = grouped_ops.stack_expert_plans(
+        [c for c, _ in plans], [i for _, i in plans])
+    densities = tuple(float(bm.mean()) for bm in bms)
+    return PackedExpertProjection(
+        counts=torch.as_tensor(counts, device=w.device),
+        indices=torch.as_tensor(indices, device=w.device), block=block,
+        density=float(np.mean(densities)), densities=densities,
+        group=group, ragged=ragged)
+
+
+def pack_model_with_report(params, cfg: ModelConfig, block: int = 128,
+                           group_experts: bool = True,
+                           ragged_moe: bool = False) -> tuple:
+    """Returns ``(packed, report)``: ``{(layer, name): PackedProjection |
+    PackedExpertProjection}`` for every tileable projection, plus a
+    summary of what was not packed, so serve-time coverage is auditable
+    from the report. ``group_experts`` / ``ragged_moe`` mark the expert
+    stacks' serving paths."""
     cfg = cfg if not cfg.scan_layers else cfg.unrolled()
     packed: dict = {}
     skipped: list = []
     packed_params = 0
     for proj in projections(cfg):
-        if proj.expert_axis is not None:
-            raise NotImplementedError("expert plan stacks are not ported yet")
         w = tree_get(params, proj.path)
         n = int(w.numel())
-        p = pack_projection(w, block)
+        if proj.expert_axis is not None:
+            p = pack_expert_projection(w, block, group=group_experts,
+                                       ragged=ragged_moe)
+        else:
+            p = pack_projection(w, block)
         if p is None:
             skipped.append({"layer": proj.layer, "name": proj.name,
                             "params": n, "reason": "non-tileable"})
         else:
             packed[proj.key] = p
             packed_params += n
+    n_expert = sum(isinstance(p, PackedExpertProjection)
+                   for p in packed.values())
     report = {
         "block": block,
+        "group_experts": group_experts,
+        "ragged_moe": ragged_moe,
+        "quant": "none",
         "n_packed": len(packed),
+        "n_expert_packed": n_expert,
         "packed_params": packed_params,
         "n_skipped": len(skipped),
         "skipped_params": sum(s["params"] for s in skipped),
@@ -97,9 +172,13 @@ def pack_model_with_report(params, cfg: ModelConfig,
     return packed, report
 
 
-def pack_model(params, cfg: ModelConfig, block: int = 128) -> dict:
-    """{(layer, name): PackedProjection} for every tileable projection."""
-    packed, _ = pack_model_with_report(params, cfg, block)
+def pack_model(params, cfg: ModelConfig, block: int = 128,
+               group_experts: bool = True, ragged_moe: bool = False) -> dict:
+    """{(layer, name): PackedProjection | PackedExpertProjection} for
+    every tileable projection (MoE expert weights get plan stacks)."""
+    packed, _ = pack_model_with_report(params, cfg, block,
+                                       group_experts=group_experts,
+                                       ragged_moe=ragged_moe)
     return packed
 
 
@@ -144,60 +223,202 @@ def sparse_apply_mlp(block_params: dict, spec, x: torch.Tensor,
     return lin("down", h)
 
 
+def grouped_sparse_linear(xs: torch.Tensor, ws: torch.Tensor,
+                          packed: PackedExpertProjection,
+                          row_live: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """y[e] = x[e] @ w[e] for all experts in one grouped kernel launch.
+    xs: (E, M, K); ws: (E, K, ...) — trailing dims folded to N. Up to
+    ``PANEL_ROWS_MAX`` rows the panel is padded to 16 rows and is one
+    occupancy block; above, it is padded to and tiled by the plan block.
+    ``row_live`` ((E, M) bool, optional): router occupancy — experts and
+    M-blocks with no live row are written as zeros without being
+    computed (live rows are unchanged)."""
+    E, M, K = xs.shape
+    bm = packed.block
+    pad_m = (-M) % (16 if M <= grouped_ops.PANEL_ROWS_MAX else bm)
+    if pad_m:
+        xs = torch.nn.functional.pad(xs, (0, 0, 0, pad_m))
+        if row_live is not None:
+            row_live = torch.nn.functional.pad(row_live, (0, pad_m))
+    block_m = None if M <= grouped_ops.PANEL_ROWS_MAX else bm
+    y = grouped_ops.grouped_blocksparse_matmul(
+        xs.contiguous(), ws.reshape(E, K, -1), packed.counts,
+        packed.indices, bm, block_m=block_m, row_live=row_live)
+    if pad_m:
+        y = y[:, :M]
+    return y
+
+
+def ragged_sparse_linear(xp: torch.Tensor, ws: torch.Tensor,
+                         tile_expert: torch.Tensor,
+                         packed: PackedExpertProjection) -> torch.Tensor:
+    """The ragged expert batch through the stacked tile plan in one
+    launch. xp: (M, K) routed tokens packed into 16-row-aligned
+    per-expert segments (M a multiple of 16, which the dispatch's static
+    bound guarantees); ws: (E, K, ...) — trailing dims folded to N;
+    tile_expert: (M / 16,) owner map, -1 on dead padding tiles."""
+    M, K = xp.shape
+    if M % grouped_ops.RAGGED_BLOCK_ROWS:
+        raise ValueError(f"ragged batch of {M} rows is not a multiple of "
+                         f"{grouped_ops.RAGGED_BLOCK_ROWS}")
+    return grouped_ops.ragged_blocksparse_matmul(
+        xp.contiguous(), ws.reshape(ws.shape[0], K, -1), packed.counts,
+        packed.indices, tile_expert, packed.block)
+
+
+# Largest token count (B*S at the layer input) served through the ragged
+# kernel: decode ticks qualify, prefill-sized batches fall back to the
+# grouped capacity-slot launch (whose panels are mostly occupied anyway).
+RAGGED_TOKENS_MAX = 64
+
+
+def sparse_apply_moe(block_params: dict, spec, x: torch.Tensor,
+                     packed_layer: dict, layer: int,
+                     group_experts: Optional[bool] = None,
+                     ragged_moe: Optional[bool] = None) -> torch.Tensor:
+    """MoE feed-forward with the expert matmuls run through the
+    block-sparse kernels under the layer's per-expert plan stacks.
+    Routing, dispatch and combine are ``moe.apply_moe``'s own; only the
+    expert matmuls are overridden.
+
+    ``group_experts=None`` follows the plans' own ``group`` flag: True
+    runs all E experts in one grouped launch per projection, masked by
+    the router's occupancy; False loops E per-expert kernel-1 launches
+    (the fallback, and the reference in equivalence checks).
+    ``ragged_moe=None`` follows the plans' ``ragged`` flag: when set and
+    the batch is decode-sized (``B*S <= RAGGED_TOKENS_MAX``), the
+    capacity-slot dispatch is replaced by the ragged expert batch of
+    routed tokens only. All paths give the same served rows."""
+    from repro_torch.models.moe import apply_moe
+    plans = [p for p in (packed_layer.get((layer, nm))
+                         for nm in ("gate", "up", "down"))
+             if isinstance(p, PackedExpertProjection)]
+    if not plans:
+        y, _ = apply_moe(block_params["moe"], spec, x)
+        return y
+    if group_experts is None:
+        group_experts = all(p.group for p in plans)
+    if ragged_moe is None:
+        ragged_moe = all(p.ragged for p in plans)
+
+    n_tokens = int(x.shape[0]) * int(x.shape[1])
+    if ragged_moe and n_tokens <= RAGGED_TOKENS_MAX:
+        def expert_ragged_linear(name, xp, ws, tile_expert):
+            plan = packed_layer.get((layer, name))
+            if isinstance(plan, PackedExpertProjection):
+                return ragged_sparse_linear(xp, ws, tile_expert, plan)
+            # no plan for this projection: each tile times its expert
+            rows = grouped_ops.RAGGED_BLOCK_ROWS
+            owner = tile_expert.clamp(min=0).long()
+            return torch.bmm(xp.reshape(-1, rows, xp.shape[1]),
+                             ws[owner]).reshape(xp.shape[0], -1)
+
+        y, _ = apply_moe(block_params["moe"], spec, x,
+                         expert_ragged_linear=expert_ragged_linear)
+        return y
+
+    if group_experts:
+        def expert_group_linear(name, xs, ws, row_live):
+            plan = packed_layer.get((layer, name))
+            if isinstance(plan, PackedExpertProjection):
+                return grouped_sparse_linear(xs, ws, plan, row_live=row_live)
+            return torch.bmm(xs, ws)
+
+        y, _ = apply_moe(block_params["moe"], spec, x,
+                         expert_group_linear=expert_group_linear)
+        return y
+
+    def expert_linear(name, e, xe, we):
+        plan = packed_layer.get((layer, name))
+        if isinstance(plan, PackedExpertProjection):
+            return sparse_linear(xe, we, plan.expert(e))
+        return xe @ we
+
+    y, _ = apply_moe(block_params["moe"], spec, x,
+                     expert_linear=expert_linear)
+    return y
+
+
 def sparse_apply_ffn(block_params: dict, spec, x: torch.Tensor,
-                     packed: dict, layer: int) -> torch.Tensor:
-    """Feed-forward dispatch for the serving ``mlp_apply`` hook."""
+                     packed: dict, layer: int,
+                     group_experts: Optional[bool] = None,
+                     ragged_moe: Optional[bool] = None) -> torch.Tensor:
+    """Feed-forward dispatch for the serving ``mlp_apply`` hook: dense-MLP
+    layers through :func:`sparse_apply_mlp`, MoE layers through
+    :func:`sparse_apply_moe` (grouped by default, the per-expert loop
+    with ``group_experts=False``, ragged decode with ``ragged_moe``)."""
     if isinstance(spec, MoESpec):
-        raise NotImplementedError("MoE sparse serving is not ported yet")
+        return sparse_apply_moe(block_params, spec, x, packed, layer,
+                                group_experts=group_experts,
+                                ragged_moe=ragged_moe)
     return sparse_apply_mlp(block_params, spec, x, packed, layer)
 
 
 def flop_savings(packed: dict) -> float:
-    """Mean fraction of projection FLOPs the kernels skip."""
+    """Mean fraction of projection FLOPs the kernels skip. An expert
+    stack contributes one term per expert (each expert's matmul is a
+    whole projection's worth of FLOPs), not one per stack."""
     if not packed:
         return 0.0
-    return float(np.mean([1.0 - p.density for p in packed.values()]))
+    skipped = []
+    for p in packed.values():
+        if isinstance(p, PackedExpertProjection):
+            skipped.extend(1.0 - d for d in p.densities)
+        else:
+            skipped.append(1.0 - p.density)
+    return float(np.mean(skipped))
 
 
 # ----------------------------------------------- plan (de)serialization
 # A bundle keeps the block plans so serve startup rehydrates them instead
 # of packing the weights again. Keys and metadata follow the JAX package:
-# "<layer>:<name>:counts" / ":indices" arrays, {"block", "density"} meta.
-# Expert stacks ("expert") and int8 storage ("quant") come with slices 4
-# and 3; until then a bundle that carries them is refused, never served
-# with those keys dropped.
+# "<layer>:<name>:counts" / ":indices" arrays, {"block", "density"} meta;
+# an expert stack adds {"expert": true, "densities", "group", "ragged"}
+# and its arrays carry the leading E axis. int8 storage ("quant") comes
+# with its slice; until then a bundle that carries it is refused, never
+# served with those keys dropped.
 
 def plans_to_host(packed: dict) -> tuple:
     """``(arrays, meta)``: flat npz-able int32 arrays and JSON-able
-    metadata of dense ``PackedProjection`` plans."""
+    metadata of ``PackedProjection`` plans and expert plan stacks."""
     arrays: dict = {}
     meta: dict = {}
     for (layer, name), p in packed.items():
-        if not isinstance(p, PackedProjection):
-            raise NotImplementedError(
-                f"plan {layer}:{name} is a {type(p).__name__}; only dense "
-                f"PackedProjection plans are ported")
         key = f"{layer}:{name}"
         arrays[key + ":counts"] = p.counts.cpu().numpy()
         arrays[key + ":indices"] = p.indices.cpu().numpy()
         meta[key] = {"block": p.block, "density": p.density}
+        if isinstance(p, PackedExpertProjection):
+            meta[key].update(expert=True, densities=list(p.densities),
+                             group=bool(p.group), ragged=bool(p.ragged))
     return arrays, meta
 
 
 def plans_from_host(arrays: dict, meta: dict, device=None) -> dict:
-    """Inverse of :func:`plans_to_host`: the ``PackedProjection`` plans,
-    their arrays on ``device``. Raises on expert or int8 plans."""
+    """Inverse of :func:`plans_to_host`: the ``PackedProjection`` /
+    ``PackedExpertProjection`` plans, their arrays on ``device``. Raises
+    on int8 plans."""
     packed: dict = {}
     for key, m in meta.items():
-        if m.get("expert") or m.get("quant", "none") != "none":
+        if m.get("quant", "none") != "none":
             raise NotImplementedError(
-                f"plan {key} is an expert stack or int8 storage; only "
-                f"dense plans are ported")
+                f"plan {key} carries int8 storage; int8 plans are not "
+                f"ported yet")
         layer, name = key.split(":")
-        packed[(int(layer), name)] = PackedProjection(
-            counts=torch.tensor(arrays[key + ":counts"], dtype=torch.int32,
-                                device=device),
-            indices=torch.tensor(arrays[key + ":indices"],
-                                 dtype=torch.int32, device=device),
-            block=int(m["block"]), density=float(m["density"]))
+        counts = torch.tensor(arrays[key + ":counts"], dtype=torch.int32,
+                              device=device)
+        indices = torch.tensor(arrays[key + ":indices"], dtype=torch.int32,
+                               device=device)
+        if m.get("expert"):
+            packed[(int(layer), name)] = PackedExpertProjection(
+                counts=counts, indices=indices, block=int(m["block"]),
+                density=float(m["density"]),
+                densities=tuple(float(d) for d in m["densities"]),
+                group=bool(m.get("group", True)),
+                ragged=bool(m.get("ragged", False)))
+        else:
+            packed[(int(layer), name)] = PackedProjection(
+                counts=counts, indices=indices, block=int(m["block"]),
+                density=float(m["density"]))
     return packed

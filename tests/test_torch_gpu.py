@@ -18,12 +18,18 @@ from repro_torch.kernels.block_sparse import ref as bs_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.grouped_block_sparse import kernel as gbs_kernel
+from repro_torch.kernels.grouped_block_sparse import ops as gbs_ops
+from repro_torch.kernels.grouped_block_sparse import ref as gbs_ref
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as pa_ref
 from repro_torch.kernels.wanda_metric import kernel as wm_kernel
 from repro_torch.kernels.wanda_metric import ops as wm_ops
 from repro_torch.kernels.wanda_metric import ref as wm_ref
+from repro_torch.models import moe
+from repro_torch.models.specs import MoESpec
+from repro_torch.serve import sparse as serve_sparse
 from repro_torch.serve.sparse import pack_projection, sparse_linear
 
 pytestmark = pytest.mark.gpu
@@ -243,3 +249,213 @@ def test_flash_attention_kernel_raises_on_what_it_does_not_take(cuda):
     for args in bad:
         with pytest.raises(ValueError):
             fa_kernel.flash_attention(*args)
+
+
+# ------------------------------------------- grouped and ragged (MoE)
+
+def _expert_case(block: int, seed: int, E=5, M=48):
+    """x (E, M, K), a block-masked expert stack w (E, K, N) whose experts
+    differ in live tiles (so the stacked plan pads max_nnz), an empty
+    column in every expert, an empty expert 0, and the stacked plan."""
+    rng = np.random.default_rng(seed)
+    K, N = 4 * block, 3 * block
+    masks = rng.random((E, K // block, N // block)) < 0.5
+    masks[1] = True                          # a dense expert: max max_nnz
+    masks[:, :, 0] = False
+    masks[:, :, 1] = True
+    masks[0] = False
+    x = rng.standard_normal((E, M, K)).astype(np.float32)
+    w = (rng.standard_normal((E, K, N)) / np.sqrt(K)).astype(np.float32)
+    w *= np.repeat(np.repeat(masks, block, 1), block, 2)
+    plans = [bs_ops.plan_blocks(m) for m in masks]
+    counts, indices = gbs_ops.stack_expert_plans(*zip(*plans))
+    return x, w, masks, counts, indices
+
+
+def _close(got, plain, dtype):
+    """f32: summation order; bf16: the kernel rounds its f32 sum once."""
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    err = (got.float() - plain.float()).abs().max().item()
+    assert err <= tol * max(1.0, plain.float().abs().max().item())
+
+
+@pytest.mark.parametrize("block", [16, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_m", [None, 16])
+def test_grouped_kernel_matches_plain(cuda, block, dtype, block_m):
+    x, w, masks, counts, indices = _expert_case(block, 60)
+    E, M = x.shape[:2]
+    live = np.zeros((E, M), bool)
+    live[1] = True
+    live[2, :3] = True                       # one live row: first panel
+    live[3, 40:] = True                      # the last 16-row block only
+    xt, wt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w))
+    ct, it = torch.from_numpy(counts).to(cuda), torch.from_numpy(
+        indices).to(cuda)
+    rl = torch.from_numpy(live).to(cuda)
+    counters.reset()
+    y = gbs_ops.grouped_blocksparse_matmul(xt, wt, ct, it, block,
+                                           block_m=block_m, row_live=rl)
+    torch.cuda.synchronize()
+    bm = M if block_m is None else block_m
+    work = live.reshape(E, M // bm, bm).any(-1)
+    assert counters.snapshot() == {
+        "grouped_block_sparse": 1,
+        "grouped_block_sparse_experts_computed": int(work.any(-1).sum())}
+    plain = gbs_ref.grouped_block_sparse_matmul_ref(
+        xt.float(), wt.float(), torch.from_numpy(masks).to(cuda), block,
+        block, work=torch.from_numpy(work.astype(np.int32)), block_m=bm)
+    assert y.dtype == dtype and y.shape == (E, M, w.shape[2])
+    _close(y, plain, dtype)
+    dead = torch.from_numpy(~np.repeat(work, bm, 1)).to(cuda)
+    assert not y[dead].any(), "dead panels are zeros"
+    assert not y[:, :, :block].any(), "empty columns are zeros"
+    assert not y[0].any() and not y[4].any()
+    # every row live, no occupancy map: all experts computed
+    counters.reset()
+    y_all = gbs_ops.grouped_blocksparse_matmul(xt, wt, ct, it, block)
+    assert counters.snapshot()["grouped_block_sparse_experts_computed"] == E
+    _close(y_all, gbs_ref.grouped_block_sparse_matmul_ref(
+        xt.float(), wt.float(), torch.from_numpy(masks).to(cuda), block,
+        block), dtype)
+    live_rows = torch.from_numpy(~dead.cpu().numpy()).to(cuda)
+    assert torch.equal(y[live_rows], y_all[live_rows]), \
+        "live rows do not depend on the occupancy map"
+
+
+@pytest.mark.parametrize("block", [16, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_kernel_matches_plain(cuda, block, dtype):
+    _, w, masks, counts, indices = _expert_case(block, 61)
+    tile_expert = np.array([1, 1, 3, 0, 2, 4, -1, -1], np.int32)
+    M = 16 * len(tile_expert)
+    x = np.random.default_rng(62).standard_normal(
+        (M, w.shape[1])).astype(np.float32)
+    xt, wt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w))
+    te = torch.from_numpy(tile_expert).to(cuda)
+    args = (torch.from_numpy(counts).to(cuda),
+            torch.from_numpy(indices).to(cuda))
+    counters.reset()
+    y = gbs_ops.ragged_blocksparse_matmul(xt, wt, *args, te, block)
+    torch.cuda.synchronize()
+    assert counters.snapshot() == {
+        "grouped_block_sparse_ragged": 1,
+        "grouped_block_sparse_ragged_experts_computed": 5}
+    plain = gbs_ref.ragged_block_sparse_matmul_ref(
+        xt.float(), wt.float(), te, 16, torch.from_numpy(masks).to(cuda),
+        block, block)
+    _close(y, plain, dtype)
+    assert not y[96:].any(), "dead tiles are zeros"
+    assert not y[48:64].any(), "the empty expert gives zeros"
+    # a tile's rows equal kernel 1 on its expert alone, bitwise
+    solo = bs_kernel.block_sparse_matmul(
+        xt[:32].contiguous(), wt[1].contiguous(), args[0][1].contiguous(),
+        args[1][1].contiguous(), block)
+    assert torch.equal(y[:32], solo)
+
+
+def _moe_layer(cuda, E=8, top_k=2, d=64, d_ff=64, block=16, seed=70):
+    rng = np.random.default_rng(seed)
+    spec = MoESpec(n_experts=E, top_k=top_k, d_ff=d_ff)
+    p = {"router": rng.standard_normal((d, E)) / np.sqrt(d),
+         "up": rng.standard_normal((E, d, d_ff)) / np.sqrt(d),
+         "gate": rng.standard_normal((E, d, d_ff)) / np.sqrt(d),
+         "down": rng.standard_normal((E, d_ff, d)) / np.sqrt(d_ff)}
+    for nm in ("up", "gate", "down"):
+        w = p[nm]
+        bm = rng.random((E, w.shape[1] // block, w.shape[2] // block)) < 0.6
+        bm[:, 0, 0] = True
+        w *= np.repeat(np.repeat(bm, block, 1), block, 2)
+    params = {k: torch.from_numpy(v.astype(np.float32)).to(cuda)
+              for k, v in p.items()}
+    packed = {(0, nm): serve_sparse.pack_expert_projection(
+        params[nm], block=block, ragged=True) for nm in ("gate", "up",
+                                                         "down")}
+    return spec, params, packed
+
+
+def test_moe_paths_bitwise_equal_on_the_card(cuda):
+    """ragged == grouped == per-expert loop bitwise on the card (the
+    shared tile routine), each path through its own kernel."""
+    spec, params, packed = _moe_layer(cuda)
+    x = torch.from_numpy(np.random.default_rng(71).standard_normal(
+        (4, 1, 64)).astype(np.float32)).to(cuda)
+    bp = {"moe": params}
+    out = {}
+    for name, kw, kernel_name in (
+            ("ragged", {"ragged_moe": True}, "grouped_block_sparse_ragged"),
+            ("grouped", {"ragged_moe": False}, "grouped_block_sparse"),
+            ("loop", {"ragged_moe": False, "group_experts": False},
+             "block_sparse")):
+        counters.reset()
+        out[name] = serve_sparse.sparse_apply_moe(bp, spec, x, packed, 0,
+                                                  **kw)
+        torch.cuda.synchronize()
+        launches = counters.snapshot()
+        want = 3 * (spec.n_experts if name == "loop" else 1)
+        assert launches[kernel_name] == want, (name, launches)
+    assert torch.equal(out["ragged"], out["grouped"])
+    assert torch.equal(out["ragged"], out["loop"])
+    dense, _ = moe.apply_moe(params, spec, x)
+    _close(out["ragged"], dense, torch.float32)
+
+
+def test_ragged_switches_to_grouped_above_64_tokens(cuda):
+    spec, params, packed = _moe_layer(cuda, seed=72)
+    bp = {"moe": params}
+    rng = np.random.default_rng(73)
+    for S, kernel_name in ((64, "grouped_block_sparse_ragged"),
+                           (65, "grouped_block_sparse")):
+        x = torch.from_numpy(rng.standard_normal((1, S, 64)).astype(
+            np.float32)).to(cuda)
+        counters.reset()
+        y = serve_sparse.sparse_apply_moe(bp, spec, x, packed, 0,
+                                          ragged_moe=True)
+        torch.cuda.synchronize()
+        launches = counters.snapshot()
+        assert launches[kernel_name] == 3, (S, launches)
+        assert {k for k in launches if not k.endswith("computed")} \
+            == {kernel_name}
+        assert launches[kernel_name + "_experts_computed"] <= 3 * 8
+        y_grp = serve_sparse.sparse_apply_moe(bp, spec, x, packed, 0,
+                                              ragged_moe=False)
+        assert torch.equal(y, y_grp)
+
+
+def test_grouped_kernels_raise_on_what_they_do_not_take(cuda):
+    x, w, _, counts, indices = _expert_case(16, 74, M=32)
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    ct, it = (torch.from_numpy(a).to(cuda) for a in (counts, indices))
+    work = torch.ones((5, 1), dtype=torch.int32, device=cuda)
+    bad_grouped = [
+        (xt.cpu(), wt.cpu(), ct.cpu(), it.cpu(), work.cpu(), 16, 32),
+        (xt, wt, ct, it, work.cpu(), 16, 32),               # mixed devices
+        (xt.half(), wt.half(), ct, it, work, 16, 32),       # dtype
+        (xt, wt.bfloat16(), ct, it, work, 16, 32),          # mixed dtypes
+        (xt, wt, ct.long(), it, work, 16, 32),              # plan dtype
+        (xt, wt, ct, it, work.long(), 16, 32),              # work dtype
+        (xt, wt, ct, it, work, 48, 32),                     # block
+        (xt[:, :, :32], wt, ct, it, work, 16, 32),          # shapes
+        (xt, wt, ct[:-1], it[:-1], work, 16, 32),           # plan shape
+        (xt, wt, ct, it, work, 16, 24),                     # block_m
+        (xt, wt, ct, it, work[:, :0], 16, 32),              # work shape
+        (xt.transpose(1, 2).contiguous().transpose(1, 2), wt, ct, it, work,
+         16, 32),                                           # layout
+    ]
+    for args in bad_grouped:
+        with pytest.raises(ValueError):
+            gbs_kernel.grouped_block_sparse_matmul(*args)
+    xp = xt[0]
+    te = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    bad_ragged = [
+        (xp.cpu(), wt.cpu(), ct.cpu(), it.cpu(), te.cpu(), 16),
+        (xp, wt, ct, it, te.cpu(), 16),                     # mixed devices
+        (xp.double(), wt.double(), ct, it, te, 16),         # dtype
+        (xp, wt, ct, it, te.long(), 16),                    # map dtype
+        (xp[:24], wt, ct, it, te, 16),                      # M % 16
+        (xp, wt, ct, it, te[:1], 16),                       # map shape
+        (xp.T.contiguous().T, wt, ct, it, te, 16),          # layout
+    ]
+    for args in bad_ragged:
+        with pytest.raises(ValueError):
+            gbs_kernel.ragged_block_sparse_matmul(*args)

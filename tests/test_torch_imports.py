@@ -47,7 +47,11 @@ def test_port_files_import_no_jax_and_no_repro():
             "kernels/paged_attention/ops.py", "kernels/paged_attention/ref.py",
             "kernels/flash_attention/kernel.py",
             "kernels/flash_attention/ops.py",
-            "kernels/flash_attention/ref.py"} <= rel
+            "kernels/flash_attention/ref.py", "models/moe.py",
+            "configs/qwen3_moe_30b_a3b.py",
+            "kernels/grouped_block_sparse/kernel.py",
+            "kernels/grouped_block_sparse/ops.py",
+            "kernels/grouped_block_sparse/ref.py"} <= rel
     bad = {os.path.relpath(f, REPO): sorted(set(r for r in _imported_roots(f)
                                                 if r in FORBIDDEN))
            for f in files}
