@@ -49,7 +49,27 @@ Phases, each printing one line of its own:
                 continuous engine's paged pool through the paged kernel,
                 held to a dense contiguous run; a decode trace, sparse
                 and dense; kernels 6 and 7 against their plain versions
-                at layer 0's gate and down stacks.
+                at layer 0's gate and down stacks;
+8. quant      — llama3-8b again, pruned with ``recipes/quant-smoke.json``
+                (golden-smoke plus int8 kept tiles): the plans' host round
+                trip checked exact, then 4 prompts x 32 greedy tokens on
+                the static engine three ways — int8 (kernel 5), "none"
+                (kernel 1 over the fake-quant weights) and dense — with
+                int8 and "none" logits bitwise equal and exact launch
+                counts; warm tok/s of each way twice in mirrored order;
+                decode traces int8 and "none"; kernel 5 at the layer-0
+                gate;
+9. moe quant  — qwen3-moe-30b-a3b pruned with the MoE recipe and
+                ``quant="int8"``: the bundle round trip (tiles, absolute
+                slots, stacked scales exact), 4 x 32 tokens on the static
+                engine four ways — int8 default (kernel 8 prefill, kernel
+                9 decode), int8 grouped only, "none", dense — with int8
+                and "none" logits bitwise equal; layer 0's MoE rows
+                bitwise equal across the int8 ragged, grouped and loop
+                (kernel 5 on absolute slots) paths and the "none" ones; 8
+                requests on the paged pool with int8 and "none", tokens
+                equal; mirrored tok/s and decode traces as for llama;
+                kernels 8 and 9 at layer 0's gate and down stacks.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -104,6 +124,16 @@ MOE_WAYS = (("default", True, {}),                 # grouped + ragged
             ("dense", False, {}))
 GROUPED_TPU = "src/repro/kernels/grouped_block_sparse/kernel.py:75"
 RAGGED_TPU = "src/repro/kernels/grouped_block_sparse/kernel.py:304"
+# the int8 phases: the recipes' kept tiles as int8 (kernels 5, 8 and 9)
+QUANT_RECIPE = "quant-smoke.json"
+QUANT_BS_TPU = "src/repro/kernels/block_sparse/kernel.py:63"
+QUANT_GROUPED_TPU = "src/repro/kernels/grouped_block_sparse/kernel.py:156"
+QUANT_RAGGED_TPU = "src/repro/kernels/grouped_block_sparse/kernel.py:235"
+# static-engine ways of the int8 MoE run: (name, sparse, ServeConfig fields)
+MOE_QUANT_WAYS = (("int8", True, {}),             # grouped + ragged, int8
+                  ("int8-grouped", True, {"ragged_moe": False}),
+                  ("none", True, {"quant": "none"}),
+                  ("dense", False, {}))
 
 
 def log(phase: str, **kw) -> None:
@@ -205,11 +235,26 @@ def phase_build(device) -> dict:
     t2 = time.perf_counter()
     out = {"nvcc_s": t1 - t0,
            "per_source": {src: {"s": dt, "lib": str(path),
-                                "ptxas": [ln for ln in report.splitlines()
-                                          if "registers" in ln]}
+                                "registers": ptxas_registers(report)}
                           for src, path, report, dt in built},
            "wanda_partials_s": t2 - t1, "build_s": t2 - t0}
+    regs = out["per_source"][bs_kernel.SOURCE]["registers"]
+    out["kernel1_f32_b16_registers"] = next(
+        (n for name, n in regs.items()
+         if "19block_sparse_kernelIfLi16E" in name), None)
     log("build", **out)
+    return out
+
+
+def ptxas_registers(report: str) -> dict:
+    """{mangled kernel name: registers} from ``nvcc -Xptxas -v``."""
+    out, entry = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "registers" in ln and entry is not None:
+            out[entry] = int(ln.split("Used")[1].split()[0])
+            entry = None
     return out
 
 
@@ -314,6 +359,17 @@ def steady_tokens_per_s(art, device, sparse: bool, **serve_kw) -> float:
     eng.generate(prompt, NEW_TOKENS)
     sync(device)
     return BATCH * NEW_TOKENS / (time.perf_counter() - t0)
+
+
+def paired_tokens_per_s(art, device, ways) -> dict:
+    """Warm static tok/s of each way, measured twice in mirrored order
+    (ways, then the ways reversed), so a drift of the host's speed over
+    the window weighs on every way alike: {name: [first, second]}."""
+    out: dict = {}
+    for name, sparse, kw in (*ways, *reversed(ways)):
+        out.setdefault(name, []).append(
+            steady_tokens_per_s(art, device, sparse, **kw))
+    return out
 
 
 def phase_main(device, gpu: str) -> dict:
@@ -422,7 +478,8 @@ def continuous_config(**kw):
 def bundle_round_trip(art, device, directory: str) -> tuple:
     """Save ``art`` into ``directory``, load it back onto the card and
     hold the loaded params, config, targets and plans (expert plan stacks
-    with their densities and path flags) equal to ``art``."""
+    with their densities and path flags, int8 tiles, slots and scales)
+    equal to ``art``."""
     import torch
     from repro_torch.common.tree import iter_paths
     from repro_torch.core.artifact import PrunedArtifact
@@ -444,18 +501,30 @@ def bundle_round_trip(art, device, directory: str) -> tuple:
         raise AssertionError("the loaded bundle's config, targets or plan "
                              "keys differ")
     for key, p in art.packed.items():
-        q = loaded.packed[key]
-        flags = ("densities", "group", "ragged")
-        if type(p) is not type(q) \
-                or (p.block, p.density) != (q.block, q.density) \
-                or any(getattr(p, f, None) != getattr(q, f, None)
-                       for f in flags) \
-                or not torch.equal(p.counts, q.counts) \
-                or not torch.equal(p.indices, q.indices):
+        if not plans_equal(p, loaded.packed[key]):
             raise AssertionError(f"the loaded plan {key} differs")
     return loaded, {"save_s": t1 - t0, "load_s": t2 - t1,
                     "bundle_bytes": n_bytes, "leaves": len(pairs),
                     "plans": len(art.packed)}
+
+
+def plans_equal(p, q) -> bool:
+    """Two plans equal in class, block, densities, path flags and every
+    array, the int8 storage included (tiles, slots, scales)."""
+    import torch
+    flags = ("densities", "group", "ragged", "quant")
+    if type(p) is not type(q) or (p.block, p.density) != (q.block,
+                                                          q.density) \
+            or any(getattr(p, f, None) != getattr(q, f, None)
+                   for f in flags):
+        return False
+    for name in ("counts", "indices", "tiles", "slots", "scales"):
+        a, b = getattr(p, name), getattr(q, name)
+        if (a is None) != (b is None) or (a is not None and (
+                a.dtype != b.dtype or a.device != b.device
+                or not torch.equal(a, b))):
+            return False
+    return True
 
 
 def serve_continuous(art, device, label: str, reqs=None, serve=None,
@@ -692,12 +761,16 @@ def profile_window(prepare, step, device, label: str) -> dict:
     return out
 
 
-def trace_decode(art, device, sparse: bool) -> dict:
-    """The static engine: BATCH sequences decoding after a prompt."""
+def trace_decode(art, device, sparse: bool, label=None, **serve_kw) -> dict:
+    """The static engine: BATCH sequences decoding after a prompt
+    (``serve_kw``: ServeConfig fields, such as ``quant``)."""
+    import dataclasses
+
     import torch
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import Engine, sample_token
-    eng = Engine.from_artifact(art, serve_config(), sparse=sparse)
+    eng = Engine.from_artifact(
+        art, dataclasses.replace(serve_config(), **serve_kw), sparse=sparse)
     prompt = torch.as_tensor(prompts(art.cfg.vocab, 2), device=device)
 
     def prepare() -> dict:
@@ -714,7 +787,7 @@ def trace_decode(art, device, sparse: bool) -> dict:
         st["i"] += 1
 
     return profile_window(prepare, step, device,
-                          "sparse" if sparse else "dense")
+                          label or ("sparse" if sparse else "dense"))
 
 
 def trace_paged(art, device, paged_kernel: bool) -> dict:
@@ -1013,15 +1086,15 @@ def moe_requests(vocab: int) -> list:
             for uid in range(MOE_REQUESTS)]
 
 
-def moe_static_runs(art, device) -> dict:
-    """4 prompts x NEW_TOKENS greedy tokens on the static engine four
-    ways, the counters reset just before and read just after each."""
+def moe_static_runs(art, device, ways=MOE_WAYS) -> dict:
+    """4 prompts x NEW_TOKENS greedy tokens on the static engine, one run
+    per way, the counters reset just before and read just after each."""
     import dataclasses
     from repro_torch.kernels import counters
     from repro_torch.serve.engine import Engine
     prompt = prompts(art.cfg.vocab, 0)
     runs = {}
-    for name, sparse, kw in MOE_WAYS:
+    for name, sparse, kw in ways:
         serve = dataclasses.replace(serve_config(), **kw)
         eng = Engine.from_artifact(art, serve, sparse=sparse)
         sync(device)
@@ -1036,11 +1109,12 @@ def moe_static_runs(art, device) -> dict:
     return runs
 
 
-def moe_layer_bitwise(art, device) -> dict:
+def moe_layer_bitwise(art, device, quants=(None,)) -> dict:
     """Layer 0's MoE feed-forward on one decode batch and one prefill
     batch of random hidden states: ragged, grouped and loop rows must be
-    bitwise equal (the shared tile routine). These launches are checks,
-    not part of a counted run."""
+    bitwise equal (the shared tile routine), under each serve-time
+    ``quant`` of ``quants`` (int8 plans: "int8" and "none" too). These
+    launches are checks, not part of a counted run."""
     import torch
     from repro_torch.models.moe import apply_moe
     from repro_torch.serve.sparse import sparse_apply_moe
@@ -1051,23 +1125,27 @@ def moe_layer_bitwise(art, device) -> dict:
     for label, S in (("decode", 1), ("prefill", PROMPT_LEN)):
         x = torch.randn((BATCH, S, art.cfg.d_model), generator=gen,
                         device=device)
-        ys = {name: sparse_apply_moe(bp, spec, x, art.packed, 0, **kw)
+        ys = {f"{name}/{q}" if q else name:
+              sparse_apply_moe(bp, spec, x, art.packed, 0, quant=q, **kw)
+              for q in quants
               for name, kw in (("ragged", {"ragged_moe": True}),
                                ("grouped", {"ragged_moe": False}),
                                ("loop", {"ragged_moe": False,
                                          "group_experts": False}))}
         dense, _ = apply_moe(bp["moe"], spec, x)
-        for name in ("grouped", "loop"):
-            if not torch.equal(ys["ragged"], ys[name]):
+        first, y0 = next(iter(ys.items()))
+        for name, y in ys.items():
+            if not torch.equal(y0, y):
                 raise AssertionError(
-                    f"MoE layer {label}: ragged and {name} rows differ by "
-                    f"{float((ys['ragged'] - ys[name]).abs().max())}")
-        err = float((ys["ragged"] - dense).abs().max())
+                    f"MoE layer {label}: {first} and {name} rows differ by "
+                    f"{float((y0 - y).abs().max())}")
+        err = float((y0 - dense).abs().max())
         if not err <= KERNEL_RTOL["float32"] * max(
                 float(dense.abs().max()), 1.0):
             raise AssertionError(f"MoE layer {label}: sparse vs dense "
                                  f"{err}")
-        out[label] = {"bitwise_equal": True, "vs_dense_max_abs_err": err}
+        out[label] = {"bitwise_equal": sorted(ys),
+                      "vs_dense_max_abs_err": err}
     return out
 
 
@@ -1236,10 +1314,13 @@ def _moe_routing(E: int, K: int, G: int, s: int, C: int, gen, device):
     return ids, onehot, pos < C, pos
 
 
-def _grouped_case(w, plan, spec, dtype, gen, label: str) -> dict:
+def _grouped_case(w, plan, spec, dtype, gen, label: str,
+                  quant: bool = False) -> dict:
     """Kernel 6 at an MoE prefill: BATCH groups of PROMPT_LEN tokens
     routed top-k over the experts, capacity slots (E, G*C, K) with the
-    router's occupancy, through the pruned stack ``w``."""
+    router's occupancy, through the pruned stack ``w``. With ``quant``,
+    kernel 8 over the int8 plan, held bitwise to kernel 6 over ``w``
+    (the fake-quant stack the plan encodes)."""
     import torch
     from repro_torch.kernels.grouped_block_sparse import kernel, ops, ref
     from repro_torch.models.moe import capacity
@@ -1265,26 +1346,45 @@ def _grouped_case(w, plan, spec, dtype, gen, label: str) -> dict:
     masks = ref.block_masks_from_plans(plan.counts, plan.indices, K // b)
     y = ops.grouped_blocksparse_matmul(xs, w, plan.counts, plan.indices, b,
                                        row_live=row_live)
+    if quant:
+        q_args = (plan.tiles, plan.counts, plan.indices, plan.slots,
+                  plan.scales)
+        y6, y = y, ops.quant_grouped_blocksparse_matmul(
+            xs, *q_args, b, row_live=row_live)
+
+        def launch():
+            return kernel.quant_grouped_block_sparse_matmul(
+                xs, *q_args, work, b, M)
+    else:
+        def launch():
+            return kernel.grouped_block_sparse_matmul(
+                xs, w, plan.counts, plan.indices, work, b, M)
     plain = ref.grouped_block_sparse_matmul_ref(xs, w, masks, b, b,
                                                 work=work, block_m=M)
     torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
-    err, tol = _check_close(f"grouped_block_sparse {label}", y, plain, dname)
+    name = "quant_grouped" if quant else "grouped"
+    err, tol = _check_close(f"{name}_block_sparse {label}", y, plain, dname)
+    if quant and not torch.equal(y, y6):
+        raise AssertionError(f"kernel 8 {label} {dname} differs from "
+                             f"kernel 6 over the dequantised stack")
     live_e = work[:, 0] > 0
     live_tiles = int(plan.counts[live_e].sum())
     s_ = xs.element_size()
-    n_bytes = (int(live_e.sum()) * M * K + live_tiles * b * b
-               + E * M * N) * s_ \
-        + 4 * (int(live_e.sum()) * (plan.counts.shape[1]
-                                    + plan.indices[0].numel()) + E)
+    n_bytes = (int(live_e.sum()) * M * K + E * M * N) * s_ + 4 * (
+        int(live_e.sum()) * plan.counts.shape[1] + E)
+    if quant:       # int8 tiles; an index, a slot and a scale a step
+        n_bytes += live_tiles * (b * b + 12)
+    else:
+        n_bytes += live_tiles * b * b * s_ \
+            + 4 * int(live_e.sum()) * plan.indices[0].numel()
     b_ms, b_by = bound_ms(n_bytes, 2.0 * M * live_tiles * b * b, dname)
     return {
         "case": label, "E": E, "M": M, "K": K, "N": N, "block": b,
-        "capacity": C, "dtype": dname,
+        "capacity": C, "dtype": dname, "quant": quant,
         "experts_computed": int(experts), "live_rows": int(row_live.sum()),
         "live_tiles": live_tiles, "max_abs_err": err, "tol": tol,
-        "ms": time_ms(lambda: kernel.grouped_block_sparse_matmul(
-            xs, w, plan.counts, plan.indices, work, b, M)),
+        "ms": time_ms(launch),
         "plain_ms": time_ms(lambda: ref.grouped_block_sparse_matmul_ref(
             xs, w, masks, b, b, work=work, block_m=M), iters=5),
         "library_ms": time_ms(lambda: torch.bmm(xs, w)),
@@ -1293,9 +1393,12 @@ def _grouped_case(w, plan, spec, dtype, gen, label: str) -> dict:
     }
 
 
-def _ragged_case(w, plan, spec, dtype, gen, label: str) -> dict:
+def _ragged_case(w, plan, spec, dtype, gen, label: str,
+                 quant: bool = False) -> dict:
     """Kernel 7 at an MoE decode tick: BATCH tokens routed top-k, packed
-    into 16-row per-expert tiles by the model's own dispatch builder."""
+    into 16-row per-expert tiles by the model's own dispatch builder.
+    With ``quant``, kernel 9 over the int8 plan, held bitwise to kernel 7
+    over ``w``."""
     import torch
     from repro_torch.kernels.grouped_block_sparse import kernel, ops, ref
     from repro_torch.models.moe import (build_ragged_dispatch, capacity,
@@ -1314,21 +1417,41 @@ def _ragged_case(w, plan, spec, dtype, gen, label: str) -> dict:
     masks = ref.block_masks_from_plans(plan.counts, plan.indices, K // b)
     y = ops.ragged_blocksparse_matmul(xp, w, plan.counts, plan.indices,
                                       tile_expert, b)
+    if quant:
+        q_args = (plan.tiles, plan.counts, plan.indices, plan.slots,
+                  plan.scales)
+        y7, y = y, ops.quant_ragged_blocksparse_matmul(xp, *q_args,
+                                                       tile_expert, b)
+
+        def launch():
+            return kernel.quant_ragged_block_sparse_matmul(
+                xp, *q_args, tile_expert, b)
+    else:
+        def launch():
+            return kernel.ragged_block_sparse_matmul(
+                xp, w, plan.counts, plan.indices, tile_expert, b)
     plain = ref.ragged_block_sparse_matmul_ref(xp, w, tile_expert, 16,
                                                masks, b, b)
     torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
-    err, tol = _check_close(f"ragged_block_sparse {label}", y, plain, dname)
+    name = "quant_ragged" if quant else "ragged"
+    err, tol = _check_close(f"{name}_block_sparse {label}", y, plain, dname)
+    if quant and not torch.equal(y, y7):
+        raise AssertionError(f"kernel 9 {label} {dname} differs from "
+                             f"kernel 7 over the dequantised stack")
     te = tile_expert.long()
     live = te >= 0
     experts = torch.unique(te[live])
     live_tiles_w = int(plan.counts[experts].sum())
     tile_tiles = int(plan.counts[te[live]].sum())     # per 16-row tile
     s_ = xp.element_size()
-    n_bytes = (int(live.sum()) * 16 * K + live_tiles_w * b * b
-               + m_max * N) * s_ \
-        + 4 * (te.numel() + experts.numel() * (plan.counts.shape[1]
-                                               + plan.indices[0].numel()))
+    n_bytes = (int(live.sum()) * 16 * K + m_max * N) * s_ + 4 * (
+        te.numel() + experts.numel() * plan.counts.shape[1])
+    if quant:       # int8 tiles; an index, a slot and a scale a step
+        n_bytes += live_tiles_w * (b * b + 12)
+    else:
+        n_bytes += live_tiles_w * b * b * s_ \
+            + 4 * experts.numel() * plan.indices[0].numel()
     b_ms, b_by = bound_ms(n_bytes, 2.0 * 16 * tile_tiles * b * b, dname)
     x_tiles = xp.reshape(-1, 16, K)
     w_tiles = w[te.clamp(min=0)]
@@ -1336,9 +1459,8 @@ def _ragged_case(w, plan, spec, dtype, gen, label: str) -> dict:
         "case": label, "E": E, "M": m_max, "K": K, "N": N, "block": b,
         "tiles": te.numel(), "live_tiles": int(live.sum()),
         "experts_computed": int(experts.numel()), "dtype": dname,
-        "max_abs_err": err, "tol": tol,
-        "ms": time_ms(lambda: kernel.ragged_block_sparse_matmul(
-            xp, w, plan.counts, plan.indices, tile_expert, b)),
+        "quant": quant, "max_abs_err": err, "tol": tol,
+        "ms": time_ms(launch),
         "plain_ms": time_ms(lambda: ref.ragged_block_sparse_matmul_ref(
             xp, w, tile_expert, 16, masks, b, b), iters=5),
         "library_ms": time_ms(lambda: torch.bmm(x_tiles, w_tiles)),
@@ -1348,9 +1470,10 @@ def _ragged_case(w, plan, spec, dtype, gen, label: str) -> dict:
     }
 
 
-def phase_moe_kernels(moe: dict, device) -> tuple:
-    """Kernels 6 and 7 against their plain versions at the MoE path's
-    shapes: layer 0's pruned gate and down stacks, f32 and bf16."""
+def phase_moe_kernels(moe: dict, device, quant: bool = False) -> tuple:
+    """Kernels 6 and 7 (with ``quant``: 8 and 9) against their plain
+    versions at the MoE path's shapes: layer 0's pruned gate and down
+    stacks, f32 and bf16."""
     import torch
     art = moe["art"]
     spec = art.cfg.layer(0).ffn
@@ -1361,24 +1484,329 @@ def phase_moe_kernels(moe: dict, device) -> tuple:
         plan = art.packed[(0, name)]
         for dtype in (torch.float32, torch.bfloat16):
             grouped.append(_grouped_case(w, plan, spec, dtype, gen,
-                                         f"layer0.{name}"))
+                                         f"layer0.{name}", quant))
             ragged.append(_ragged_case(w, plan, spec, dtype, gen,
-                                       f"layer0.{name}"))
+                                       f"layer0.{name}", quant))
+    q = "quant_" if quant else ""
     for c in grouped:
-        log("kernels", kernel="grouped_block_sparse_matmul", **c)
+        log("kernels", kernel=f"{q}grouped_block_sparse_matmul", **c)
     for c in ragged:
-        log("kernels", kernel="ragged_block_sparse_matmul", **c)
+        log("kernels", kernel=f"{q}ragged_block_sparse_matmul", **c)
     return grouped, ragged
 
 
-def kernel_table(main: dict, cont: dict, moe: dict, cases: dict) -> dict:
+# ------------------------------------------------------------ int8 phases
+
+# static-engine ways of the int8 llama run: (name, sparse, ServeConfig)
+QUANT_WAYS = (("int8", True, {}),                 # the plans' int8 flag
+              ("none", True, {"quant": "none"}),  # kernel 1, fake-quant w
+              ("dense", False, {}))
+
+
+def check_static_runs(runs: dict, expected: dict, n_experts=None) -> None:
+    """Exact launch counts per run (experts-computed counters bounded by
+    experts x launches), finite logits and tokens of the right shape."""
+    import torch
+    for name, r in runs.items():
+        got = {k: v for k, v in r["launches"].items()
+               if not k.endswith("_experts_computed")}
+        if got != expected[name] or not all(
+                v for v in expected[name].values()):
+            raise AssertionError(f"{name}: launches {r['launches']}, "
+                                 f"expected {expected[name]}")
+        for kname, n in expected[name].items():
+            computed = r["launches"].get(kname + "_experts_computed")
+            if computed is not None and not 0 < computed <= n_experts * n:
+                raise AssertionError(f"{name}: {computed} experts "
+                                     f"computed over {n} launches")
+        toks, logits = r["tokens"], r["logits"]
+        if tuple(toks.shape) != (BATCH, PROMPT_LEN + NEW_TOKENS) \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{name}: bad output")
+
+
+def int8_equals_none(runs: dict, a: str, b: str = "none") -> float:
+    """The int8 run ``a`` and the dequantised reference run ``b`` must
+    give the same logits bit for bit (and so the same tokens)."""
+    import torch
+    diff = float((runs[a]["logits"] - runs[b]["logits"]).abs().max())
+    if not torch.equal(runs[a]["logits"], runs[b]["logits"]) \
+            or not torch.equal(runs[a]["tokens"], runs[b]["tokens"]):
+        raise AssertionError(f"{a} and {b} logits differ by {diff}")
+    return diff
+
+
+def quant_summary(qb: dict) -> dict:
+    """The pack report's ``quant_bytes`` without its per-projection rows,
+    plus the int8 storage over bf16 bytes per projection name."""
+    by_name: dict = {}
+    for key, row in qb["per_projection"].items():
+        name = key.split(":")[1]
+        b, d = by_name.get(name, (0, 0))
+        by_name[name] = (b + row["bytes"], d + row.get("bf16_bytes", 0))
+    out = {k: v for k, v in qb.items() if k != "per_projection"}
+    out["ratio_vs_bf16_by_name"] = {n: b / d for n, (b, d) in
+                                    sorted(by_name.items()) if d}
+    return out
+
+
+def _quant_block_sparse_case(w, plan, M: int, dtype, gen,
+                             label: str) -> dict:
+    """Kernel 5 on the int8 plan of a pruned projection, held bitwise to
+    kernel 1 over ``w`` (the fake-quant weight the plan encodes) and to
+    its plain version within tolerance."""
+    import torch
+    from repro_torch.kernels.block_sparse import kernel, ref
+    dev = w.device
+    K, N = w.shape
+    b = plan.block
+    x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    wd = w.to(dtype).contiguous()
+    args = (plan.tiles, plan.counts, plan.indices, plan.slots, plan.scales,
+            b)
+    y = kernel.quant_block_sparse_matmul(x, *args)
+    y1 = kernel.block_sparse_matmul(x, wd, plan.counts, plan.indices, b)
+    plain = ref.quant_block_sparse_matmul_ref(x, *args)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    if not torch.equal(y, y1):
+        raise AssertionError(f"kernel 5 {label} {dname} differs from "
+                             f"kernel 1 over the dequantised weight by "
+                             f"{float((y - y1).abs().max())}")
+    err, tol = _check_close(f"quant_block_sparse {label} M={M}", y, plain,
+                            dname)
+    live = int(plan.counts.sum())
+    n_bytes = (M * K + M * N) * x.element_size() + live * (b * b + 12) \
+        + 4 * plan.counts.numel()
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * M * live * b * b, dname)
+    return {
+        "case": label, "M": M, "K": K, "N": N, "block": b, "dtype": dname,
+        "density": live / (plan.counts.numel() * K // b),
+        "tiles": int(plan.tiles.shape[0]),
+        "max_abs_err": err, "tol": tol,
+        "ms": time_ms(lambda: kernel.quant_block_sparse_matmul(x, *args)),
+        "kernel1_ms": time_ms(lambda: kernel.block_sparse_matmul(
+            x, wd, plan.counts, plan.indices, b)),
+        "plain_ms": time_ms(lambda: ref.quant_block_sparse_matmul_ref(
+            x, *args)),
+        "library_ms": time_ms(lambda: torch.matmul(x, wd)),
+        "library": "torch.matmul over the dequantised block-masked weight",
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def phase_quant(main: dict, device, gpu: str) -> dict:
+    """llama3-8b at full width, 4 layers, pruned with the int8 recipe and
+    served three ways on the static engine; kernel 5 at the layer-0
+    gate."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.pipeline import MosaicPipeline
+    from repro_torch.core.recipe import PruneRecipe
+    from repro_torch.core.registry import projections
+    from repro_torch.kernels import counters
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.sparse import plans_from_host, plans_to_host
+
+    cfg = get_config("llama3-8b").replace(n_periods=N_PERIODS,
+                                          scan_layers=False)
+    recipe = PruneRecipe.load(os.path.join(HERE, "recipes", QUANT_RECIPE))
+    counters.reset()
+    params = T.init_model(torch.Generator(device=device).manual_seed(0), cfg)
+    art = MosaicPipeline(recipe).run(params, cfg)
+    del params
+    prune_launches = counters.snapshot()
+    if prune_launches != {"wanda_partials": 2 * len(projections(cfg))}:
+        raise AssertionError(f"quant prune launches {prune_launches}")
+    if not art.packed or not all(p.quant == "int8" and p.tiles is not None
+                                 for p in art.packed.values()):
+        raise AssertionError("the int8 recipe packed plans without int8 "
+                             "storage")
+    t0 = time.perf_counter()
+    back = plans_from_host(*plans_to_host(art.packed), device)
+    round_trip_s = time.perf_counter() - t0
+    if set(back) != set(art.packed) or not all(
+            plans_equal(p, back[k]) for k, p in art.packed.items()):
+        raise AssertionError("int8 plans differ after the host round trip")
+    del back
+    ffn = sum(1 for (_, name) in art.packed
+              if name in ("gate", "up", "down"))
+    runs = moe_static_runs(art, device, QUANT_WAYS)
+    expected = {"int8": {"block_sparse_quant": ffn * NEW_TOKENS},
+                "none": {"block_sparse": ffn * NEW_TOKENS}, "dense": {}}
+    check_static_runs(runs, expected)
+    qb = art.report["pack"]["quant_bytes"]
+    st = art.report["stage_seconds"]
+    out = {"gpu": gpu, "recipe": f"recipes/{QUANT_RECIPE}",
+           "prune_launches": prune_launches, "expected_launches": expected,
+           "profile_s": st.get("rank"), "prune_s": st.get("prune"),
+           "pack_s": st.get("pack"), "pack_s_golden_smoke": main["pack_s"],
+           "plans_round_trip_s": round_trip_s,
+           "quant_bytes": quant_summary(qb),
+           "bytes_before": art.report["bytes_before"],
+           "bytes_after": art.report["bytes_after"],
+           "int8_vs_none_logits_max_abs_diff": int8_equals_none(runs,
+                                                                "int8"),
+           "vs_dense": compare_generation(
+               runs["int8"]["tokens"], runs["int8"]["logits"],
+               runs["dense"]["tokens"], runs["dense"]["logits"],
+               PROMPT_LEN, LOGIT_ATOL),
+           "static": {name: {k: v for k, v in r.items()
+                             if k not in ("tokens", "logits")}
+                      for name, r in runs.items()}}
+    print(f"int8 kept tiles: {qb['total_bytes']} bytes, "
+          f"ratio_vs_bf16 {qb['ratio_vs_bf16']}", flush=True)
+    out["tokens_per_s"] = paired_tokens_per_s(art, device, QUANT_WAYS)
+    log("quant", **out)
+    out["trace"] = [trace_decode(art, device, True, "int8"),
+                    trace_decode(art, device, True, "none", quant="none")]
+    for t in out["trace"]:
+        log("trace", gpu=gpu, model="llama3-8b quant-smoke", **t)
+    gen = torch.Generator(device=device).manual_seed(7)
+    w = art.params["blocks"][0]["mlp"]["gate"]
+    out["cases"] = [_quant_block_sparse_case(w, art.packed[(0, "gate")], 16,
+                                             dtype, gen, "layer0.gate")
+                    for dtype in (torch.float32, torch.bfloat16)]
+    for c in out["cases"]:
+        log("kernels", kernel="quant_block_sparse_matmul", **c)
+    out["art"] = art
+    return out
+
+
+def phase_moe_quant(device, gpu: str) -> dict:
+    """qwen3-moe-30b-a3b at full width, 4 layers, pruned with the MoE
+    recipe and ``quant="int8"``: bundle round trip, the static engine four
+    ways, layer 0's rows across every path, the paged pool int8 and
+    "none"."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core.pipeline import MosaicPipeline
+    from repro_torch.core.recipe import PruneRecipe
+    from repro_torch.core.registry import projections
+    from repro_torch.kernels import counters
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.sparse import (RAGGED_TOKENS_MAX,
+                                          PackedExpertProjection)
+
+    _, cfg = moe_config()
+    recipe = PruneRecipe.load(os.path.join(HERE, "recipes", MOE_RECIPE)
+                              ).replace(quant="int8")
+    counters.reset()
+    params = T.init_model(torch.Generator(device=device).manual_seed(0), cfg)
+    art = MosaicPipeline(recipe).run(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    prune_launches = counters.snapshot()
+    if prune_launches != {"wanda_partials": 2 * len(projections(cfg))}:
+        raise AssertionError(f"moe quant prune launches {prune_launches}")
+    stacks = [p for p in art.packed.values()
+              if isinstance(p, PackedExpertProjection)]
+    if len(stacks) != 3 * cfg.n_layers or not all(
+            p.quant == "int8" and p.tiles is not None for p in stacks):
+        raise AssertionError("expected int8 expert stacks for gate/up/down "
+                             "of every layer")
+    qb = art.report["pack"]["quant_bytes"]
+    st = art.report["stage_seconds"]
+    out = {"gpu": gpu, "recipe": f"recipes/{MOE_RECIPE} + quant int8",
+           "profile_s": st.get("rank"), "prune_s": st.get("prune"),
+           "pack_s": st.get("pack"), "prune_launches": prune_launches,
+           "quant_bytes": quant_summary(qb),
+           "bytes_before": art.report["bytes_before"],
+           "bytes_after": art.report["bytes_after"],
+           "tiles_layer0_gate": int(art.packed[(0, "gate")].tiles.shape[0])}
+    log("moe_quant", **out)
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="moe-quant-bundle-", dir=out_dir)
+    try:
+        loaded, out["bundle"] = bundle_round_trip(art, device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del art
+    torch.cuda.empty_cache()
+    log("moe_quant", bundle=out["bundle"])
+
+    runs = moe_static_runs(loaded, device, MOE_QUANT_WAYS)
+    L = loaded.cfg.n_layers
+    prefill = 1 if BATCH * PROMPT_LEN > RAGGED_TOKENS_MAX else 0
+    decode = NEW_TOKENS - 1
+    expected = {
+        "int8": {"grouped_block_sparse_quant": 3 * L * prefill,
+                 "grouped_block_sparse_ragged_quant": 3 * L * decode},
+        "int8-grouped": {"grouped_block_sparse_quant": 3 * L * NEW_TOKENS},
+        "none": {"grouped_block_sparse": 3 * L * prefill,
+                 "grouped_block_sparse_ragged": 3 * L * decode},
+        "dense": {}}
+    check_static_runs(runs, expected, loaded.cfg.layer(0).ffn.n_experts)
+    out["expected_launches"] = expected
+    out["int8_vs_none_logits_max_abs_diff"] = int8_equals_none(runs, "int8")
+    if not torch.equal(runs["int8-grouped"]["tokens"],
+                       runs["int8"]["tokens"]):
+        raise AssertionError("moe int8: grouped-only tokens differ from the "
+                             "default path's")
+    for name in ("int8", "int8-grouped"):
+        runs[name]["vs_dense"] = compare_generation(
+            runs[name]["tokens"], runs[name]["logits"],
+            runs["dense"]["tokens"], runs["dense"]["logits"], PROMPT_LEN,
+            LOGIT_ATOL)
+    out["static"] = {name: {k: v for k, v in r.items()
+                            if k not in ("tokens", "logits")}
+                     for name, r in runs.items()}
+    for name, r in out["static"].items():
+        log("moe_quant", run=name, **r)
+    out["layer_bitwise"] = moe_layer_bitwise(loaded, device,
+                                             quants=("int8", "none"))
+    log("moe_quant", layer_bitwise=out["layer_bitwise"])
+
+    reqs = moe_requests(loaded.cfg.vocab)
+    pool = continuous_config(block_size=BLOCK_SIZE, paged_kernel=True)
+    run = serve_continuous(loaded, device, "moe-int8-paged-kernel", reqs,
+                           pool)
+    ref_run = serve_continuous(
+        loaded, device, "moe-none-paged-kernel", moe_requests(
+            loaded.cfg.vocab),
+        continuous_config(block_size=BLOCK_SIZE, paged_kernel=True,
+                          quant="none"))
+    want = {"grouped_block_sparse_quant": 3 * L * run["prefill_chunks"],
+            "grouped_block_sparse_ragged_quant": 3 * L * run["ticks"],
+            "paged_attention": L * run["ticks"]}
+    got = {k: v for k, v in run["launches"].items()
+           if not k.endswith("_experts_computed")}
+    if got != want:
+        raise AssertionError(f"moe int8 continuous: launches "
+                             f"{run['launches']}, expected {want}")
+    if run["tokens"] != ref_run["tokens"]:
+        raise AssertionError("moe int8 continuous: tokens differ from the "
+                             "dequantised reference run's")
+    run["expected_launches"] = want
+    out["continuous"] = [{k: v for k, v in r.items()
+                          if k not in ("tokens", "prompts")}
+                         for r in (run, ref_run)]
+    for r in out["continuous"]:
+        log("moe_quant", **r)
+    out["tokens_per_s"] = paired_tokens_per_s(loaded, device,
+                                              MOE_QUANT_WAYS)
+    log("moe_quant", tokens_per_s=out["tokens_per_s"])
+    out["trace"] = [trace_decode(loaded, device, True, "int8"),
+                    trace_decode(loaded, device, True, "none", quant="none")]
+    for t in out["trace"]:
+        log("trace", gpu=gpu, model=f"{MOE_ARCH} int8", **t)
+    out["art"] = loaded
+    return out
+
+
+def kernel_table(main: dict, cont: dict, moe: dict, quant: dict,
+                 moe_quant: dict, cases: dict) -> dict:
     """The contract's kernel line: one representative case per kernel, at
-    f32 — kernel 1 at the main path's decode shape (M=16, the plan's
-    block, the gate projection), the Wanda reduction on (4096, 14336),
-    paged attention at the continuous run's 8 decode lengths, flash
-    attention on the 3072-token prompt, the grouped kernel at an MoE
-    prefill and the ragged kernel at an MoE decode tick (layer 0's gate
-    stack). The MoE kernels' launches are the default static run's."""
+    f32 — kernels 1 and 5 at the main path's decode shape (M=16, the
+    plan's block, the gate projection), the Wanda reduction on (4096,
+    14336), paged attention at the continuous run's 8 decode lengths,
+    flash attention on the 3072-token prompt, the grouped kernels (6, 8)
+    at an MoE prefill and the ragged kernels (7, 9) at an MoE decode tick
+    (layer 0's gate stack). The MoE kernels' launches are the default
+    static runs'; kernel 5's the int8 llama run's."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
     bs = next(c for c in cases["block_sparse"] if c["case"] == "layer0.gate"
@@ -1386,10 +1814,14 @@ def kernel_table(main: dict, cont: dict, moe: dict, cases: dict) -> dict:
     wm = cases["wanda"][0]
     pa = next(c for c in cases["paged"] if c["dtype"] == "float32")
     fa = next(c for c in cases["flash"] if c["dtype"] == "float32")
-    gb, rg = (next(c for c in cases[k] if c["case"] == "layer0.gate"
-                   and c["dtype"] == "float32")
-              for k in ("grouped", "ragged"))
+    gb, rg, qgb, qrg = (next(c for c in cases[k] if c["case"] == "layer0.gate"
+                             and c["dtype"] == "float32")
+                        for k in ("grouped", "ragged", "quant_grouped",
+                                  "quant_ragged"))
+    qbs = next(c for c in quant["cases"] if c["dtype"] == "float32")
     moe_launches = moe["static"]["default"]["launches"]
+    q_launches = quant["static"]["int8"]["launches"]
+    mq_launches = moe_quant["static"]["int8"]["launches"]
     runs = {r["label"]: r["launches"] for r in cont["runs"]}
     return {"kernels": [
         {"name": "block_sparse_matmul", "route": "cuda",
@@ -1422,6 +1854,21 @@ def kernel_table(main: dict, cont: dict, moe: dict, cases: dict) -> dict:
          "replaces": RAGGED_TPU,
          "launches": moe_launches.get("grouped_block_sparse_ragged", 0),
          **{k: rg[k] for k in keys}},
+        {"name": "quant_block_sparse_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/block_sparse.cu",
+         "replaces": QUANT_BS_TPU,
+         "launches": q_launches.get("block_sparse_quant", 0),
+         **{k: qbs[k] for k in keys}},
+        {"name": "quant_grouped_block_sparse_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/grouped_block_sparse.cu",
+         "replaces": QUANT_GROUPED_TPU,
+         "launches": mq_launches.get("grouped_block_sparse_quant", 0),
+         **{k: qgb[k] for k in keys}},
+        {"name": "quant_ragged_block_sparse_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/grouped_block_sparse.cu",
+         "replaces": QUANT_RAGGED_TPU,
+         "launches": mq_launches.get("grouped_block_sparse_ragged_quant", 0),
+         **{k: qrg[k] for k in keys}},
     ]}
 
 
@@ -1444,7 +1891,8 @@ def main() -> int:
     bs_cases, wm_cases = phase_kernels(main_info, device)
     pa_cases, fa_cases = phase_attention_kernels(main_info, cont_info,
                                                  device)
-    del main_info["art"]                 # free the llama3-8b phases' model
+    quant_info = phase_quant(main_info, device, gpu)
+    del main_info["art"], quant_info["art"]   # free the llama3-8b models
     torch.cuda.empty_cache()
     moe_info = phase_moe(device, gpu)
     moe_trace = [trace_decode(moe_info["art"], device, sparse)
@@ -1453,9 +1901,18 @@ def main() -> int:
         log("trace", gpu=gpu, model=MOE_ARCH, **t)
     gb_cases, rg_cases = phase_moe_kernels(moe_info, device)
     del moe_info["art"]
-    table = kernel_table(main_info, cont_info, moe_info, {
-        "block_sparse": bs_cases, "wanda": wm_cases, "paged": pa_cases,
-        "flash": fa_cases, "grouped": gb_cases, "ragged": rg_cases})
+    torch.cuda.empty_cache()
+    moe_quant_info = phase_moe_quant(device, gpu)
+    qgb_cases, qrg_cases = phase_moe_kernels(moe_quant_info, device,
+                                             quant=True)
+    del moe_quant_info["art"]
+    table = kernel_table(main_info, cont_info, moe_info, quant_info,
+                         moe_quant_info, {
+                             "block_sparse": bs_cases, "wanda": wm_cases,
+                             "paged": pa_cases, "flash": fa_cases,
+                             "grouped": gb_cases, "ragged": rg_cases,
+                             "quant_grouped": qgb_cases,
+                             "quant_ragged": qrg_cases})
 
     record = {"device": dev_info, "build": build_info,
               "main": main_info, "continuous": cont_info, "trace": trace,
@@ -1465,6 +1922,9 @@ def main() -> int:
               "moe": moe_info, "moe_trace": moe_trace,
               "grouped_block_sparse_cases": gb_cases,
               "ragged_block_sparse_cases": rg_cases,
+              "quant": quant_info, "moe_quant": moe_quant_info,
+              "quant_grouped_block_sparse_cases": qgb_cases,
+              "quant_ragged_block_sparse_cases": qrg_cases,
               "table": table, "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

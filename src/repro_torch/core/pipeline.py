@@ -100,23 +100,34 @@ def stage_pack(ctx: PipelineContext) -> None:
     "non-tileable"``). ``recipe.group_experts`` marks the expert stacks
     for the grouped one-launch kernel (else the per-expert launch loop),
     ``recipe.ragged_moe`` for the ragged dispatch at decode sizes; the
-    flags ride inside each plan through the bundle. int8 kept-tile
-    packing (``recipe.quant``) comes with its slice."""
-    from repro_torch.serve.sparse import pack_model_with_report
-    if ctx.recipe.quant != "none":
-        raise NotImplementedError(f"quant={ctx.recipe.quant!r} packing is "
-                                  f"not ported yet")
+    flags ride inside each plan through the bundle.
+
+    ``recipe.quant="int8"`` also packs each plan's kept tiles as int8
+    with pow2 scales and replaces the quantized projections' params with
+    their fake-quant round trip, so the dense forward, the
+    ``quant="none"`` path and the int8 kernels all see the same
+    weights."""
+    from repro_torch.serve.sparse import (apply_fake_quant,
+                                          pack_model_with_report)
     ctx.packed, ctx.pack_report = pack_model_with_report(
         ctx.params, ctx.cfg, block=ctx.recipe.block,
         group_experts=ctx.recipe.group_experts,
-        ragged_moe=ctx.recipe.ragged_moe)
+        ragged_moe=ctx.recipe.ragged_moe, quant=ctx.recipe.quant)
+    if ctx.recipe.quant == "int8":
+        ctx.params = apply_fake_quant(ctx.params, ctx.cfg, ctx.packed)
 
 
 @register_stage("report")
 def stage_report(ctx: PipelineContext) -> None:
-    """Provenance + timing summary."""
+    """Provenance + timing summary. With an int8 pack, ``bytes_after`` is
+    real storage: each quantized projection's dense bytes are swapped
+    for its int8 tile + scale + plan bytes."""
     r = ctx.recipe
     ra = ctx.rank_artifact
+    bytes_after = param_bytes(ctx.params)
+    qb = (ctx.pack_report or {}).get("quant_bytes")
+    if qb:
+        bytes_after += qb["total_bytes"] - qb["dense_bytes"]
     ctx.report.update({
         "arch": r.arch,
         "p": r.p,
@@ -127,7 +138,7 @@ def stage_report(ctx: PipelineContext) -> None:
         "params_before": ctx.dense_params,
         "bytes_before": ctx.dense_bytes,
         "params_after": param_count(ctx.params),
-        "bytes_after": param_bytes(ctx.params),
+        "bytes_after": bytes_after,
         "profile_seconds": ra.profile_seconds if ra else None,
         "calibration_tokens": ra.n_tokens if ra else None,
         "prune_seconds": (ctx.timings.get("plan", 0.0)

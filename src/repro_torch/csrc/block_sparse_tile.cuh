@@ -12,7 +12,22 @@
 // x row, the weight and the plan: the same token row comes out bitwise
 // equal from kernel 1, the grouped kernel and the ragged kernel, whatever
 // M-tile or row position it lands in.
+//
+// The weight comes from one of two sources, a template policy of the
+// routine: DenseWeight reads w[k, c] of the dense (K, N) weight `w`
+// (kernels 1, 6 and 7), Int8Tiles reads the step's int8 kept tile and
+// multiplies it by the tile's pow2 scale on load (kernels 5, 8 and 9;
+// `w` is unused). float(q) * 2^e is exact, so the staged weight tile,
+// and with it every fmaf of the chain, is bitwise what the dense source
+// gives over the dequantised weight; the TPU kernels scale the
+// accumulated tile product instead, which would change the order of the
+// sum here. The dense policy is an empty marker and `w` stays a
+// __restrict__ parameter of the routine, so kernels 1, 6 and 7 compile
+// to the code they had before the int8 policy existed (a pointer moved
+// into a struct member loses its read-only loads and costs registers).
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,17 +51,46 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// The dense weight `w` (K, N): the staged element of a step is
+// w[kbase + kk, col0 + cc], kernel 1's own index arithmetic.
+struct DenseWeight {
+  static constexpr bool kDense = true;
+};
+
+// int8 kept tiles (T, BN, BN) of a plan: step s of the column reads the
+// storage row slots[s] and multiplies by scales[s]. slots / scales point
+// at the column's plan row; every slot is below T (checked at pack time).
+template <int BN>
+struct Int8Tiles {
+  static constexpr bool kDense = false;
+  const int8_t* tiles;
+  const int* slots;
+  const float* scales;
+  const int8_t* cur = nullptr;   // the step's tile and scale
+  float scale = 0.f;
+
+  __device__ __forceinline__ void step(int s) {
+    cur = tiles + static_cast<size_t>(slots[s]) * (BN * BN);
+    scale = scales[s];
+  }
+  // row k (0 .. BN-1) and column c of the step's tile, dequantised
+  __device__ __forceinline__ float at(int k, int c) const {
+    return static_cast<float>(cur[k * BN + c]) * scale;
+  }
+};
+
 // One output tile: rows m0 .. m0 + kRows - 1 (those below M) of columns
 // col0 .. col0 + BN - 1. x: (M, K) and y: (M, N) of one matrix (one
-// expert's panel, or the whole packed buffer); w: its (K, N) weight;
-// idx: the column's plan row, `count` live K-block ids. Rows at or past M
-// read as zeros and are not written. The index arithmetic is kernel 1's
-// own (int sizes, 64-bit offsets), which keeps its register count and its
-// read-only loads. Every thread of the block must call it (it
-// synchronises).
-template <typename T, int BN>
+// expert's panel, or the whole packed buffer); w: its (K, N) weight,
+// read when the policy q is DenseWeight; q: Int8Tiles for the int8
+// storage; idx: the column's plan row, `count` live K-block ids. Rows
+// at or past M read as zeros and are not written. The index arithmetic
+// is kernel 1's own (int sizes, 64-bit offsets), which keeps its
+// register count and its read-only loads. Every thread of the block
+// must call it (it synchronises).
+template <typename T, int BN, typename Q = DenseWeight>
 __device__ __forceinline__ void tile(const T* __restrict__ x,
-                                     const T* __restrict__ w,
+                                     const T* __restrict__ w, Q q,
                                      const int* __restrict__ idx, int count,
                                      T* __restrict__ y, int m0, int M, int K,
                                      int N, size_t col0) {
@@ -69,6 +113,7 @@ __device__ __forceinline__ void tile(const T* __restrict__ x,
 
   for (int s = 0; s < count; ++s) {
     const int kb = idx[s];
+    if constexpr (!Q::kDense) q.step(s);
     for (int k0 = 0; k0 < BN; k0 += KC) {
       const size_t kbase = static_cast<size_t>(kb) * BN + k0;
       for (int i = tid; i < kRows * KC; i += kThreads) {
@@ -79,7 +124,10 @@ __device__ __forceinline__ void tile(const T* __restrict__ x,
       }
       for (int i = tid; i < KC * BN; i += kThreads) {
         const int kk = i / BN, cc = i % BN;
-        ws[kk][cc] = to_f32(w[(kbase + kk) * N + col0 + cc]);
+        if constexpr (Q::kDense)
+          ws[kk][cc] = to_f32(w[(kbase + kk) * N + col0 + cc]);
+        else
+          ws[kk][cc] = q.at(k0 + kk, cc);
       }
       __syncthreads();
 #pragma unroll

@@ -3,6 +3,8 @@ only) block-sparse matmuls: plan stacking from independent per-expert
 plans, the occupancy reductions, and the ops that dispatch to the CUDA
 kernels (CUDA tensors) or their plain versions (CPU tensors).
 
+The ``quant_*`` ops run the same launches over int8 kept-tile storage
+(every expert's kept tiles in one array, absolute slots, pow2 scales).
 Each CUDA launch also adds the experts it computed to a device-side
 counter (``*_experts_computed``), as the JAX package's ops record them,
 without a host sync.
@@ -83,6 +85,61 @@ def grouped_blocksparse_matmul(x: torch.Tensor, w: torch.Tensor,
     y = kernel.grouped_block_sparse_matmul(x, w, counts, indices, work,
                                            block, block_m)
     counters.record_device("grouped_block_sparse_experts_computed", experts)
+    return y
+
+
+def quant_grouped_blocksparse_matmul(x: torch.Tensor, tiles: torch.Tensor,
+                                     counts: torch.Tensor,
+                                     indices: torch.Tensor,
+                                     slots: torch.Tensor,
+                                     scales: torch.Tensor, block: int,
+                                     block_m: int | None = None,
+                                     row_live: torch.Tensor | None = None
+                                     ) -> torch.Tensor:
+    """The grouped launch over int8 kept-tile storage (``block_m`` and
+    ``row_live`` as in :func:`grouped_blocksparse_matmul`). tiles:
+    (T, b, b) int8; slots (E, nN, max_nnz) int32 absolute rows; scales
+    (E, nN, max_nnz) f32. A CPU ``x`` runs kernel 6's plain version over
+    the dequantised stack."""
+    E, M, _ = x.shape
+    block_m = M if block_m is None else block_m
+    work, experts = occupancy(row_live, E, M, block_m, x.device)
+    if x.device.type == "cpu":
+        w, masks = ref.dequantized_stack(tiles, counts, indices, slots,
+                                         scales, x.shape[2] // block)
+        return ref.grouped_block_sparse_matmul_ref(
+            x, w.to(x.dtype), masks, block, block, work=work,
+            block_m=block_m)
+    y = kernel.quant_grouped_block_sparse_matmul(
+        x, tiles, counts, indices, slots, scales, work, block, block_m)
+    counters.record_device("grouped_block_sparse_quant_experts_computed",
+                           experts)
+    return y
+
+
+def quant_ragged_blocksparse_matmul(x: torch.Tensor, tiles: torch.Tensor,
+                                    counts: torch.Tensor,
+                                    indices: torch.Tensor,
+                                    slots: torch.Tensor,
+                                    scales: torch.Tensor,
+                                    tile_expert: torch.Tensor,
+                                    block: int) -> torch.Tensor:
+    """The ragged launch over int8 kept-tile storage (operands as in
+    :func:`quant_grouped_blocksparse_matmul`). A CPU ``x`` runs kernel
+    7's plain version over the dequantised stack."""
+    tile_expert = tile_expert.to(torch.int32)
+    if x.device.type == "cpu":
+        w, masks = ref.dequantized_stack(tiles, counts, indices, slots,
+                                         scales, x.shape[1] // block)
+        return ref.ragged_block_sparse_matmul_ref(
+            x, w.to(x.dtype), tile_expert, RAGGED_BLOCK_ROWS, masks, block,
+            block)
+    y = kernel.quant_ragged_block_sparse_matmul(
+        x, tiles, counts, indices, slots, scales, tile_expert.contiguous(),
+        block)
+    counters.record_device(
+        "grouped_block_sparse_ragged_quant_experts_computed",
+        ragged_occupancy(tile_expert, counts.shape[0]))
     return y
 
 

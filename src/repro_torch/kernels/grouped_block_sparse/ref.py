@@ -3,14 +3,16 @@
 Both run each expert's rows through kernel 1's plain version
 (``block_sparse.ref.block_sparse_matmul_ref``), the routine the
 per-expert loop path runs too, so a token's row comes out of the three
-MoE dispatch paths from the same product of its expert's weight.
+MoE dispatch paths from the same product of its expert's weight. The
+int8 kernels' plain versions are these over ``dequantized_stack``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.block_sparse.ref import (block_mask_from_plan,
-                                                  block_sparse_matmul_ref)
+                                                  block_sparse_matmul_ref,
+                                                  dequantize_plan)
 
 
 def block_masks_from_plans(counts: torch.Tensor, indices: torch.Tensor,
@@ -19,6 +21,16 @@ def block_masks_from_plans(counts: torch.Tensor, indices: torch.Tensor,
     return torch.stack([block_mask_from_plan(counts[e], indices[e],
                                              n_kblocks)
                         for e in range(counts.shape[0])])
+
+
+def dequantized_stack(tiles: torch.Tensor, counts: torch.Tensor,
+                      indices: torch.Tensor, slots: torch.Tensor,
+                      scales: torch.Tensor, n_kblocks: int) -> tuple:
+    """``(w (E, K, N) f32, block maps (E, K/b, N/b))`` of a stacked int8
+    plan: the dense stack its kept tiles encode (exact) and its plan's
+    block maps, for the plain versions of kernels 6 and 7."""
+    w = dequantize_plan(tiles, counts, indices, slots, scales, n_kblocks)
+    return w, block_masks_from_plans(counts, indices, n_kblocks)
 
 
 def grouped_block_sparse_matmul_ref(x: torch.Tensor, w: torch.Tensor,

@@ -13,6 +13,10 @@ bundle-driven.
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
       --artifact results/moe --sparse --ragged-moe --device cpu
 
+  # a bundle pruned with recipes/quant-smoke.json: int8 kept tiles
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+      --artifact results/q --sparse --quant int8 --device cpu
+
   # serve a saved PrunedArtifact (from launch.prune, or the JAX
   # package's) on the paged pool, decode through the paged kernel
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
@@ -24,7 +28,10 @@ continuous`` runs the slot-pool ``ContinuousEngine`` (``--block-size``
 switches it to the paged KV pool). MoE expert plans run through the
 grouped kernel unless ``--no-group-experts`` (one kernel-1 launch per
 expert); ``--ragged-moe`` sends decode-sized batches through the ragged
-kernel. Runs on ``--device cuda`` (the default) and raises when CUDA is
+kernel. ``--quant int8`` streams the plans' int8 kept tiles (kernels 5,
+8 and 9), ``--quant none`` forces the dequantised reference path over
+the same fake-quant weights; with ``--prune`` it also sets the recipe's
+``quant``. Runs on ``--device cuda`` (the default) and raises when CUDA is
 missing, unless ``--device cpu`` is given. ``--gateway`` is not ported
 yet and exits with an error.
 """
@@ -74,6 +81,7 @@ def _load_or_prune(args, device: torch.device) -> tuple:
             recipe = PruneRecipe(
                 arch=args.arch, p=args.prune, category=args.category,
                 align_channels=8, block=args.sparse_block,
+                quant=("int8" if args.quant == "int8" else "none"),
                 calibration=CalibrationSpec(n_samples=8, batch_size=4,
                                             seq_len=args.prompt_len))
         if not (args.sparse or args.save_artifact):
@@ -111,11 +119,12 @@ def _load_or_prune(args, device: torch.device) -> tuple:
     return params, cfg, packed, "dense"
 
 
-def _moe_knobs(args) -> dict:
-    """``ServeConfig``'s MoE fields from the flags (None follows the
-    flags the plans carry)."""
+def _path_knobs(args) -> dict:
+    """``ServeConfig``'s MoE and weight-storage fields from the flags
+    (None follows the flags the plans carry)."""
     return {"group_experts": False if args.no_group_experts else None,
-            "ragged_moe": True if args.ragged_moe else None}
+            "ragged_moe": True if args.ragged_moe else None,
+            "quant": args.quant}
 
 
 def _run_continuous(args, params, cfg, packed, corpus, device) -> None:
@@ -141,7 +150,7 @@ def _run_continuous(args, params, cfg, packed, corpus, device) -> None:
                             compute_dtype=torch.float32,
                             cache_dtype=torch.float32,
                             paged_kernel=args.paged_kernel,
-                            scheduler=args.scheduler, **_moe_knobs(args))
+                            scheduler=args.scheduler, **_path_knobs(args))
     eng = ContinuousEngine(params, cfg, serve_cfg, packed=packed)
     finished, stats = eng.run(reqs, temperature=args.temperature)
     _sync(device)
@@ -193,6 +202,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="MoE decode ticks: pack only routed tokens into "
                          "ragged expert batches (skips empty experts) "
                          "instead of full capacity-slot batches")
+    ap.add_argument("--quant", choices=["int8", "none"], default=None,
+                    help="projection weight storage: int8 streams the "
+                         "plans' kept-tile int8 storage (needs a bundle "
+                         "packed with quant), none forces the "
+                         "dequantised reference path (default: follow "
+                         "plan flags)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--block-size", type=int, default=None, metavar="N",
                     help="continuous engine: page the KV cache into "
@@ -242,7 +257,7 @@ def main(argv=None) -> None:
               "engine always uses a contiguous cache")
     serve_cfg = ServeConfig(max_seq=args.prompt_len + args.new_tokens,
                             compute_dtype=torch.float32,
-                            cache_dtype=torch.float32, **_moe_knobs(args))
+                            cache_dtype=torch.float32, **_path_knobs(args))
     eng = Engine(params, cfg, serve_cfg, packed=packed)
     prompt = corpus.batch(0, args.batch, args.prompt_len)[:, :args.prompt_len]
     _sync(device)

@@ -97,7 +97,7 @@ class ContinuousEngine:
         # per-stage observability: request latencies + tick gauges
         self.metrics = MetricsRegistry()
         mlp_apply = (make_sparse_mlp_apply(packed, serve.group_experts,
-                                           serve.ragged_moe)
+                                           serve.ragged_moe, serve.quant)
                      if packed else None)
         if serve.paged:
             self._prefill = make_paged_prefill_step(

@@ -8,8 +8,8 @@ runs (CPU). ``block_size`` selects the continuous engine's KV pool:
 paged pool (fixed-size KV blocks + per-request block tables, prefix
 sharing, chunked prefill — see ``repro_torch.serve.paging``).
 ``group_experts`` / ``ragged_moe`` pick the MoE expert matmuls' path
-(None follows the flags the plans carry). The int8 knob comes with its
-slice.
+and ``quant`` the weight storage the kernels stream (None follows the
+flags the plans carry).
 """
 from __future__ import annotations
 
@@ -44,6 +44,12 @@ class ServeConfig:
     ragged_moe: Optional[bool] = None  # MoE: ragged (routed-tokens-only)
     #                                 dispatch at decode batch sizes
     #                                 (None follows plan flags)
+    quant: Optional[str] = None     # projection weight storage: "int8"
+    #                                 streams the plans' kept-tile int8
+    #                                 storage (needs an int8 pack),
+    #                                 "none" forces the dequantised
+    #                                 reference path, None follows plan
+    #                                 flags
     paged_kernel: bool = False      # paged decode: the paged-attention
     #                                 kernel instead of the gather path
     #                                 (needs block_size)
@@ -52,7 +58,11 @@ class ServeConfig:
     #                                 fifo | priority | slo
 
     def __post_init__(self):
+        from repro_torch.core.recipe import QUANT_MODES
         from repro_torch.serve.policies import SCHEDULERS
+        if self.quant is not None and self.quant not in QUANT_MODES:
+            raise ValueError(f"unknown quant {self.quant!r}; "
+                             f"choices: {QUANT_MODES} or None")
         if self.max_seq <= 0:
             raise ValueError(f"max_seq={self.max_seq} must be positive")
         for name in ("compute_dtype", "cache_dtype"):

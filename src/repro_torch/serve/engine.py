@@ -127,20 +127,33 @@ def sample_tokens(logits: torch.Tensor, keys: torch.Tensor,
 
 def make_sparse_mlp_apply(packed: dict,
                           group_experts: Optional[bool] = None,
-                          ragged_moe: Optional[bool] = None):
+                          ragged_moe: Optional[bool] = None,
+                          quant: Optional[str] = None):
     """``mlp_apply`` hook routing FFN layers through the block-sparse
     kernels wherever ``packed`` has a plan: dense MLPs per projection,
     MoE layers through their expert plan stacks — one grouped launch for
     all experts by default (``group_experts=None`` follows each plan's
     ``group`` flag), E per-expert launches with ``group_experts=False``,
     and the ragged dispatch at decode batch sizes with ``ragged_moe``
-    (None follows each plan's ``ragged`` flag)."""
+    (None follows each plan's ``ragged`` flag).
+
+    ``quant`` (from ``ServeConfig.quant``) picks the weight storage the
+    kernels stream: None follows each plan's own flag, "int8" requires
+    int8 kept-tile storage in the plans (raises here when none carries
+    it), "none" forces the dense-weight (dequantised reference) path."""
     from repro_torch.serve.sparse import sparse_apply_ffn
+
+    if quant == "int8" and not any(
+            p.quant == "int8" and p.tiles is not None
+            for p in packed.values()):
+        raise ValueError(
+            "ServeConfig.quant='int8' but no plan carries int8 kept-tile "
+            "storage; pack with PruneRecipe.quant='int8' first")
 
     def mlp_apply(block_params, spec, x, layer):
         return sparse_apply_ffn(block_params, spec, x, packed, layer,
                                 group_experts=group_experts,
-                                ragged_moe=ragged_moe)
+                                ragged_moe=ragged_moe, quant=quant)
     return mlp_apply
 
 
@@ -167,8 +180,9 @@ class Engine:
 
     ``packed`` (from ``sparse.pack_model``) routes the FFN projections
     through the block-sparse kernels — the Mosaic fast path; the MoE
-    paths follow ``serve.group_experts`` / ``serve.ragged_moe``. The
-    engine runs on the params' device.
+    paths follow ``serve.group_experts`` / ``serve.ragged_moe`` and the
+    weight storage ``serve.quant``. The engine runs on the params'
+    device.
     """
 
     def __init__(self, params, cfg: ModelConfig,
@@ -180,8 +194,8 @@ class Engine:
         self.device = tree_device(self.params)
         self.max_seq = self.serve.max_seq
         self.mlp_apply = (make_sparse_mlp_apply(
-            packed, self.serve.group_experts, self.serve.ragged_moe)
-            if packed else None)
+            packed, self.serve.group_experts, self.serve.ragged_moe,
+            self.serve.quant) if packed else None)
         self._serve_step = make_serve_step(cfg, self.serve.compute_dtype,
                                            self.mlp_apply)
 

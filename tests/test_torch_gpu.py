@@ -459,3 +459,183 @@ def test_grouped_kernels_raise_on_what_they_do_not_take(cuda):
     for args in bad_ragged:
         with pytest.raises(ValueError):
             gbs_kernel.ragged_block_sparse_matmul(*args)
+
+
+# ------------------------------------------ int8 kept tiles (kernels 5, 8, 9)
+
+def _quant_weight(block: int, seed: int, E=None):
+    """A block-masked weight (K, N), or an expert stack (E, K, N) whose
+    expert 0 keeps nothing (its storage is one all-zero tile), each with
+    an empty column and a tile that holds one tiny value, in f32 on the
+    CPU (packed on the card by the caller)."""
+    rng = np.random.default_rng(seed)
+    lead = () if E is None else (E,)
+    K, N = 4 * block, 3 * block
+    masks = rng.random((*lead, K // block, N // block)) < 0.5
+    masks[..., :, 0] = False
+    masks[..., :, 1] = True
+    w = (rng.standard_normal((*lead, K, N)) / np.sqrt(K)).astype(np.float32)
+    w *= np.repeat(np.repeat(masks, block, -2), block, -1)
+    w[..., :block, block:2 * block] = 0.0      # a tile of zeros...
+    w[..., 0, block] = 1e-30                   # ...but for one tiny value
+    if E is not None:
+        w[0] = 0.0
+    return torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("block", [16, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 16, 37])
+def test_quant_block_sparse_kernel_bitwise_to_kernel_1(cuda, block, dtype,
+                                                       M):
+    w = _quant_weight(block, 80).to(cuda)
+    plan = pack_projection(w, block=block, quant="int8")
+    wfq = serve_sparse.dequantized_weight(plan, w.shape[0]).to(dtype)
+    x = torch.from_numpy(np.random.default_rng(81).standard_normal(
+        (M, w.shape[0])).astype(np.float32)).to(cuda, dtype)
+    counters.reset()
+    y = bs_ops.quant_blocksparse_matmul(x, plan.tiles, plan.counts,
+                                        plan.indices, plan.slots,
+                                        plan.scales, block)
+    torch.cuda.synchronize()
+    assert counters.snapshot() == {"block_sparse_quant": 1}
+    y1 = bs_kernel.block_sparse_matmul(x, wfq.contiguous(), plan.counts,
+                                       plan.indices, block)
+    assert y.dtype == dtype and torch.equal(y, y1)
+    plain = bs_ref.quant_block_sparse_matmul_ref(
+        x.float(), plan.tiles, plan.counts, plan.indices, plan.slots,
+        plan.scales, block)
+    _close(y, plain, dtype)
+    assert not y[:, :block].any(), "the empty column gives zeros"
+    # the per-expert loop's case: slots into a longer, shared tile array
+    stack = serve_sparse.pack_expert_projection(
+        _quant_weight(block, 82, E=3).to(cuda), block=block, quant="int8")
+    view = stack.expert(2)
+    y_e = sparse_linear(x, None, view, quant="int8")
+    w_e = serve_sparse.dequantized_weight(stack, w.shape[0])[2].to(dtype)
+    assert torch.equal(y_e, sparse_linear(x, w_e, view, quant="none"))
+
+
+@pytest.mark.parametrize("block", [16, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 16, 37])
+def test_quant_grouped_and_ragged_kernels_bitwise_to_6_and_7(cuda, block,
+                                                             dtype, M):
+    E = 5
+    stack = serve_sparse.pack_expert_projection(
+        _quant_weight(block, 83, E=E).to(cuda), block=block, ragged=True,
+        quant="int8")
+    K = 4 * block
+    wfq = serve_sparse.dequantized_weight(stack, K).to(dtype)
+    rng = np.random.default_rng(84)
+    xs = torch.from_numpy(rng.standard_normal((E, M, K)).astype(
+        np.float32)).to(cuda, dtype)
+    live = torch.from_numpy(rng.random((E, M)) < 0.7).to(cuda)
+    live[3] = False
+    counters.reset()
+    yg = serve_sparse.grouped_sparse_linear(xs, None, stack,
+                                            row_live=live, quant="int8")
+    torch.cuda.synchronize()
+    launches = counters.snapshot()
+    assert launches["grouped_block_sparse_quant"] == 1
+    assert launches["grouped_block_sparse_quant_experts_computed"] <= E
+    yg6 = serve_sparse.grouped_sparse_linear(xs, wfq, stack, row_live=live,
+                                             quant="none")
+    assert yg.dtype == dtype and torch.equal(yg, yg6)
+    plain = gbs_ref.grouped_block_sparse_matmul_ref(
+        xs.float(), wfq.float(), gbs_ref.block_masks_from_plans(
+            stack.counts, stack.indices, K // block), block, block)
+    rows = live[..., None].expand_as(yg)
+    _close(yg[rows], plain[rows], dtype)
+    assert not yg[0].any() and not yg[3].any()
+    tile_expert = torch.tensor([1, 1, 4, 0, 2, -1], dtype=torch.int32,
+                               device=cuda)
+    xp = torch.from_numpy(rng.standard_normal((16 * 6, K)).astype(
+        np.float32)).to(cuda, dtype)
+    counters.reset()
+    yr = serve_sparse.ragged_sparse_linear(xp, None, tile_expert, stack,
+                                           quant="int8")
+    torch.cuda.synchronize()
+    assert counters.snapshot() == {
+        "grouped_block_sparse_ragged_quant": 1,
+        "grouped_block_sparse_ragged_quant_experts_computed": 4}
+    yr7 = serve_sparse.ragged_sparse_linear(xp, wfq, tile_expert, stack,
+                                            quant="none")
+    assert torch.equal(yr, yr7)
+    _close(yr, gbs_ref.ragged_block_sparse_matmul_ref(
+        xp.float(), wfq.float(), tile_expert, 16,
+        gbs_ref.block_masks_from_plans(stack.counts, stack.indices,
+                                       K // block), block, block), dtype)
+    assert not yr[80:].any() and not yr[48:64].any()
+
+
+def test_quant_moe_paths_bitwise_equal_on_the_card(cuda):
+    """int8: ragged == grouped == per-expert loop (kernel 5 on absolute
+    slots) bitwise, and equal to the dequantised "none" paths."""
+    spec, params, _ = _moe_layer(cuda, seed=75)
+    packed = {(0, nm): serve_sparse.pack_expert_projection(
+        params[nm], block=16, ragged=True, quant="int8")
+        for nm in ("gate", "up", "down")}
+    fq = {nm: serve_sparse.dequantized_weight(
+        packed[(0, nm)], params[nm].shape[1]).reshape(params[nm].shape)
+        for nm in ("gate", "up", "down")}
+    bp = {"moe": {**params, **fq}}
+    x = torch.from_numpy(np.random.default_rng(76).standard_normal(
+        (4, 1, 64)).astype(np.float32)).to(cuda)
+    out = {}
+    for name, kw, kernel_name in (
+            ("ragged", {"ragged_moe": True},
+             "grouped_block_sparse_ragged_quant"),
+            ("grouped", {"ragged_moe": False}, "grouped_block_sparse_quant"),
+            ("loop", {"ragged_moe": False, "group_experts": False},
+             "block_sparse_quant")):
+        for quant in ("int8", "none"):
+            counters.reset()
+            out[name, quant] = serve_sparse.sparse_apply_moe(
+                bp, spec, x, packed, 0, quant=quant, **kw)
+            torch.cuda.synchronize()
+            launches = counters.snapshot()
+            if quant == "int8":
+                want = 3 * (spec.n_experts if name == "loop" else 1)
+                assert launches[kernel_name] == want, (name, launches)
+    ref_ = out["ragged", "int8"]
+    for key, y in out.items():
+        assert torch.equal(y, ref_), key
+
+
+def test_quant_kernels_raise_on_what_they_do_not_take(cuda):
+    w = _quant_weight(16, 85).to(cuda)
+    p = pack_projection(w, block=16, quant="int8")
+    x = torch.zeros((16, w.shape[0]), device=cuda)
+    ok = (x, p.tiles, p.counts, p.indices, p.slots, p.scales, 16)
+    bad = [
+        (x, p.tiles.float(), *ok[2:]),                      # float tiles
+        (x, p.tiles, p.counts, p.indices, p.slots, p.scales.double(), 16),
+        (x, p.tiles, p.counts, p.indices, p.slots.long(), p.scales, 16),
+        (x, p.tiles.cpu(), *ok[2:]),                        # CPU/CUDA mix
+        (x, p.tiles, p.counts, p.indices, p.slots, p.scales.cpu(), 16),
+        (x.cpu(), *ok[1:]),
+        (x.half(), *ok[1:]),                                # x dtype
+        (x, p.tiles[:, :8], *ok[2:]),                       # tile shape
+        (x, p.tiles, p.counts, p.indices, p.slots[:, :1], p.scales, 16),
+        (x, *ok[1:6], 32),                                  # block
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            bs_kernel.quant_block_sparse_matmul(*args)
+    s = serve_sparse.pack_expert_projection(
+        _quant_weight(16, 86, E=3).to(cuda), block=16, quant="int8")
+    xs = torch.zeros((3, 16, w.shape[0]), device=cuda)
+    work = torch.ones((3, 1), dtype=torch.int32, device=cuda)
+    te = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    for tiles, scales, xx in ((s.tiles.float(), s.scales, xs),
+                              (s.tiles, s.scales.half(), xs),
+                              (s.tiles.cpu(), s.scales, xs),
+                              (s.tiles, s.scales, xs.cpu())):
+        with pytest.raises(ValueError):
+            gbs_kernel.quant_grouped_block_sparse_matmul(
+                xx, tiles, s.counts, s.indices, s.slots, scales, work, 16,
+                16)
+        with pytest.raises(ValueError):
+            gbs_kernel.quant_ragged_block_sparse_matmul(
+                xx[0], tiles, s.counts, s.indices, s.slots, scales, te, 16)

@@ -418,7 +418,7 @@ def test_stack_and_pack_expert_plans_match_jax():
 
 
 def test_expert_plans_host_round_trip_and_flop_savings():
-    _, _, _, packed = _pruned_moe_layer(4, 2, 1.25, 8)
+    _, p_np, params, packed = _pruned_moe_layer(4, 2, 1.25, 8)
     arrays, meta = sparse.plans_to_host(packed)
     assert all(m["expert"] and m["ragged"] and m["group"]
                for m in meta.values())
@@ -440,9 +440,25 @@ def test_expert_plans_host_round_trip_and_flop_savings():
         indices=torch.zeros((2, 1, 1), dtype=torch.int32), block=16,
         density=0.5, densities=(0.0, 1.0))}
     assert sparse.flop_savings(lop) == pytest.approx(0.5)
-    with pytest.raises(NotImplementedError, match="int8"):
-        sparse.plans_from_host(arrays, {k: dict(m, quant="int8")
-                                        for k, m in meta.items()})
+    # int8 stacks ride through with their storage, in JAX's keys
+    qpacked = {k: sparse.pack_expert_projection(params[k[1]], block=BLOCK,
+                                                ragged=True, quant="int8")
+               for k in packed}
+    arrays, meta = sparse.plans_to_host(qpacked)
+    assert all(m["quant"] == "int8" for m in meta.values())
+    back = sparse.plans_from_host(arrays, meta)
+    jback = jax_sparse.plans_from_host(arrays, meta)
+    for k, p in qpacked.items():
+        jp = jax_sparse.pack_expert_projection(p_np[k[1]], BLOCK,
+                                               ragged=True, quant="int8")
+        for name in ("tiles", "scales", "slots"):
+            assert torch.equal(getattr(back[k], name), getattr(p, name))
+            np.testing.assert_array_equal(np.asarray(getattr(jback[k], name)),
+                                          np.asarray(getattr(jp, name)))
+    bad = dict(arrays)
+    bad["0:up:slots"] = bad["0:up:slots"] + len(bad["0:up:tiles"])
+    with pytest.raises(ValueError, match="past"):
+        sparse.plans_from_host(bad, meta)
 
 
 def test_cpu_runs_record_no_launch_and_kernels_refuse_cpu():
