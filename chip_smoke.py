@@ -69,7 +69,24 @@ Phases, each printing one line of its own:
                 (kernel 5 on absolute slots) paths and the "none" ones; 8
                 requests on the paged pool with int8 and "none", tokens
                 equal; mirrored tok/s and decode traces as for llama;
-                kernels 8 and 9 at layer 0's gate and down stacks.
+                kernels 8 and 9 at layer 0's gate and down stacks;
+10. ssm       — mamba2-1.3b at full width and depth (48 layers, random
+                weights from seed 0), after the MoE tensors are freed:
+                ``MosaicPipeline`` on ``recipes/golden-smoke.json`` with
+                its arch set to mamba2 (SSD heads pruned, Mamba
+                projections planned), the bundle round trip, 4 x 32
+                greedy tokens on the static engine (each prefill one
+                kernel-10 launch per layer, decode the plain recurrence),
+                one 600-token prefill held to stepping the same tokens
+                through the recurrence, 8 requests (prompts of 4096, 3000
+                and 17-300 tokens) on the continuous engine's contiguous
+                pool held request by request to the static engine, exact
+                launch counts, a decode trace, and kernel 10 against its
+                plain version at layer 0's inputs;
+11. hybrid    — jamba-v0.1-52b at the JAX package's smoke size (attention,
+                Mamba, MLP and MoE layers in one cache pool) pruned with
+                the MoE recipe and served static and continuous to equal
+                tokens, through kernels 10, 1, 6 and 7.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -81,6 +98,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -134,6 +152,17 @@ MOE_QUANT_WAYS = (("int8", True, {}),             # grouped + ragged, int8
                   ("int8-grouped", True, {"ragged_moe": False}),
                   ("none", True, {"quant": "none"}),
                   ("dense", False, {}))
+# the ssm phase: mamba2-1.3b at full width and depth, golden-smoke's recipe
+SSM_ARCH, SSM_RECIPE = "mamba2-1.3b", "golden-smoke.json"
+SSD_TPU = "src/repro/kernels/ssd_scan/kernel.py:52"
+SSM_CHECK_PROMPT = 600             # two full 256-row chunks, a padded third
+SSM_LONG_PROMPTS = (4096, 3000)    # 16 full chunks; a padded last chunk
+SSM_REQUESTS = 8                   # the long two, then PROMPT_RANGE prompts
+SSM_MAX_SEQ = SSM_LONG_PROMPTS[0] + NEW_RANGE[1]
+STATE_RTOL = 1e-4                  # x max|state|: f32 sum-order noise
+# static-engine ways: the plans exist, but Mamba projections serve dense
+SSM_WAYS = (("sparse", True, {}), ("dense", False, {}))
+HYBRID_ARCH, HYBRID_REQUESTS = "jamba-v0.1-52b", 6
 
 
 def log(phase: str, **kw) -> None:
@@ -209,12 +238,9 @@ def phase_build(device) -> dict:
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.block_sparse import kernel as bs_kernel
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.grouped_block_sparse import kernel as gbs_kernel
-    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.wanda_metric import kernel as wm_kernel
-    sources = (bs_kernel.SOURCE, pa_kernel.SOURCE, fa_kernel.SOURCE,
-               gbs_kernel.SOURCE)
+    sources = build.SOURCES
 
     def one(source):
         t = time.perf_counter()
@@ -242,6 +268,14 @@ def phase_build(device) -> dict:
     out["kernel1_f32_b16_registers"] = next(
         (n for name, n in regs.items()
          if "19block_sparse_kernelIfLi16E" in name), None)
+    # mangled names: ...<len>ssd_<stage>_kernelI<dtype>[Li<PS>E]E...
+    out["kernel10_registers"] = {}
+    for name, n in out["per_source"][ssd_kernel.SOURCE]["registers"].items():
+        m = re.search(r"\d(ssd_[a-z]+_kernel)(?:I(f|13__nv_bfloat16))?"
+                      r"(?:Li(\d+))?", name)
+        if m:
+            key = f"{m.group(1)}<{m.group(2) or ''},{m.group(3) or ''}>"
+            out["kernel10_registers"][key] = n
     log("build", **out)
     return out
 
@@ -666,7 +700,8 @@ GEMM_MARKS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "splitk")
 def kernel_class(name: str) -> str:
     n = name.lower()
     for k, c in (("grouped_kernel", "grouped_block_sparse"),
-                 ("ragged_kernel", "ragged_block_sparse")):
+                 ("ragged_kernel", "ragged_block_sparse"),
+                 ("ssd_", "ssd_scan")):
         if k in n:
             return c
     for k in ("block_sparse", "paged_attention", "flash_attention"):
@@ -1797,16 +1832,473 @@ def phase_moe_quant(device, gpu: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ SSM phases
+
+def ssm_requests(vocab: int) -> list:
+    """The ssm continuous run's traffic from seed 0: a 4096-token prompt
+    (16 full chunks through a carried state), a 3000-token one (a padded
+    last chunk), and PROMPT_RANGE prompts; NEW_RANGE new tokens each."""
+    import numpy as np
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.default_rng(0)
+    lo, hi = PROMPT_RANGE
+    lens = list(SSM_LONG_PROMPTS) + [
+        int(rng.integers(lo, hi + 1))
+        for _ in range(SSM_REQUESTS - len(SSM_LONG_PROMPTS))]
+    return [Request(uid=uid, prompt=rng.integers(1, vocab, n).tolist(),
+                    max_new_tokens=int(rng.integers(NEW_RANGE[0],
+                                                    NEW_RANGE[1] + 1)))
+            for uid, n in enumerate(lens)]
+
+
+def ssm_serve_config(max_seq: int = SSM_MAX_SEQ, **kw):
+    import torch
+    from repro_torch.serve.config import ServeConfig
+    return ServeConfig(max_seq=max_seq, compute_dtype=torch.float32,
+                       cache_dtype=torch.float32, **kw)
+
+
+def prefill_vs_recurrence(art, device) -> dict:
+    """One SSM_CHECK_PROMPT-token prefill (kernel 10 in every Mamba
+    layer) against stepping the same tokens one by one through the
+    recurrence, which launches no kernel: last logits within LOGIT_ATOL,
+    every layer's final state within STATE_RTOL x max|state|, the next
+    greedy token equal."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import counters
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
+    eng = Engine.from_artifact(art, ssm_serve_config())
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        1, art.cfg.vocab, (1, SSM_CHECK_PROMPT)), device=device)
+    V = art.cfg.vocab
+    with torch.no_grad():
+        counters.reset()
+        pre = T.init_cache(eng.cfg, 1, SSM_CHECK_PROMPT, torch.float32,
+                           device)
+        lp, pre = eng._step(toks, pre, 0)
+        sync(device)
+        launches = counters.snapshot()
+        step = T.init_cache(eng.cfg, 1, SSM_CHECK_PROMPT, torch.float32,
+                            device)
+        t0 = time.perf_counter()
+        for i in range(SSM_CHECK_PROMPT):
+            ls, step = eng._step(toks[:, i:i + 1], step, i)
+        sync(device)
+        step_s = time.perf_counter() - t0
+    if launches != {"ssd_scan": art.cfg.n_layers} \
+            or counters.snapshot() != launches:
+        raise AssertionError(f"prefill launches {launches}, after the "
+                             f"recurrence {counters.snapshot()}")
+    logit_err = float((lp - ls).abs().max())
+    state_err = max(
+        float((a["mamba"]["state"] - b["mamba"]["state"]).abs().max())
+        / max(float(b["mamba"]["state"].abs().max()), 1e-30)
+        for a, b in zip(pre, step))
+    tok_p, tok_s = int(lp[0, :V].argmax()), int(ls[0, :V].argmax())
+    if not (logit_err <= LOGIT_ATOL and state_err <= STATE_RTOL
+            and tok_p == tok_s):
+        raise AssertionError(f"prefill vs recurrence: logits {logit_err}, "
+                             f"states {state_err} x max, tokens {tok_p} vs "
+                             f"{tok_s}")
+    return {"prompt": SSM_CHECK_PROMPT, "launches": launches,
+            "logits_max_abs_err": logit_err, "logit_atol": LOGIT_ATOL,
+            "state_max_rel_err": state_err, "state_rtol": STATE_RTOL,
+            "next_token": tok_p, "recurrence_s": step_s}
+
+
+def compare_alone(art, device, run: dict) -> dict:
+    """Each request's continuous tokens equal that request served alone
+    by the static engine, up to a step where the static engine's top-2
+    margin is within LOGIT_ATOL."""
+    import torch
+    from repro_torch.serve.engine import Engine
+    eng = Engine.from_artifact(art, ssm_serve_config())
+    parted = []
+    for uid, got in sorted(run["tokens"].items()):
+        prompt = run["prompts"][uid]
+        toks, logits = eng.generate([prompt], len(got), return_logits=True)
+        want = toks[0, len(prompt):].tolist()
+        t = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+                 None)
+        if t is None:
+            continue
+        top2 = torch.topk(logits[t, 0, :art.cfg.vocab], 2).values
+        margin = float(top2[0] - top2[1])
+        if margin > LOGIT_ATOL:
+            raise AssertionError(f"{run['label']}: uid {uid} parts from "
+                                 f"the static engine at step {t} with "
+                                 f"top-2 margin {margin}")
+        parted.append({"uid": uid, "step": t, "margin": margin})
+    return {"compared": len(run["tokens"]), "parted_at_near_ties": parted}
+
+
+def hybrid_refusals(art) -> list:
+    """The continuous engine refuses a paged pool and padded prefills
+    for a model with Mamba layers."""
+    from repro_torch.serve.batching import ContinuousEngine
+    out = []
+    for kw in ({"block_size": BLOCK_SIZE, "prefill_multiple": 1},
+               {"prefill_multiple": 16}):
+        serve = ssm_serve_config(-(-SSM_MAX_SEQ // BLOCK_SIZE) * BLOCK_SIZE,
+                                 max_slots=MAX_SLOTS, **kw)
+        try:
+            ContinuousEngine.from_artifact(art, serve)
+        except ValueError as e:
+            out.append({"serve": kw, "raised": str(e)})
+            continue
+        raise AssertionError(f"the continuous engine took {kw} for an SSM "
+                             f"model")
+    return out
+
+
+def capture_ssd_inputs(art, tokens, device) -> dict:
+    """Layer 0's SSD scan inputs for ``tokens`` (B, L), as the mixer
+    builds them: the scan entry point is wrapped for one call of layer 0
+    alone (outside every counted run)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm
+    caught = {}
+    real = ops.ssd_scan
+
+    def catch(xt, da, Bm, Cm, chunk, h0=None):
+        caught.update(xt=xt, da=da, Bm=Bm, Cm=Cm, chunk=chunk)
+        return real(xt, da, Bm, Cm, chunk, h0)
+
+    bp = art.params["blocks"][0]
+    ops.ssd_scan = catch
+    try:
+        with torch.no_grad():
+            x = art.params["embed"]["table"][
+                torch.as_tensor(tokens, device=device).long()]
+            ssm.apply_mamba(bp["mamba"], art.cfg.layer(0).mixer,
+                            L.apply_norm(bp["norm1"], art.cfg.norm, x))
+    finally:
+        ops.ssd_scan = real
+    return caught
+
+
+def _ssd_case(inp: dict, h0, dtype, label: str) -> dict:
+    """Kernel 10 on layer 0's inputs (cast to ``dtype``; da stays f32)
+    against its plain version: output and final state."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel, ref
+    da, chunk = inp["da"], inp["chunk"]
+    xt, Bm, Cm = (inp[k] if inp[k].dtype == dtype else inp[k].to(dtype)
+                  for k in ("xt", "Bm", "Cm"))
+    y, h = kernel.ssd_scan(xt, da, Bm, Cm, chunk, h0)
+    y_p, h_p = ref.ssd_chunked(xt, da, Bm, Cm, chunk, h0)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    err, tol = _check_close(f"ssd_scan {label}", y, y_p, dname)
+    state_err, state_tol = _check_close(f"ssd_scan {label} state", h, h_p,
+                                        dname)
+    del y_p, h_p
+    B, L, H, P = xt.shape
+    N = Bm.shape[2]
+    Q = min(chunk, L)
+    n_chunks = -(-L // Q)
+    # what the function needs, over each chunk's real rows q: C Bᵀ once
+    # per (sequence, chunk) (one group), then per head the masked scores
+    # @ xt, the chunk's state and C @ state, and carrying the (P, N) state
+    # into the next chunk; the two (i, j) products over i >= j only
+    rows = [min(Q, L - c * Q) for c in range(n_chunks)]
+    macs = sum(q * (q + 1) // 2 * (N + H * P) + H * (2 * q + 1) * N * P
+               for q in rows)
+    flops = 2.0 * B * macs
+    n_bytes = (2 * B * L * H * P + 2 * B * L * N) * xt.element_size() \
+        + 4 * B * L * H + 4 * B * H * P * N * (1 if h0 is None else 2)
+    b_ms, b_by = bound_ms(n_bytes, flops, dname)
+    return {
+        "case": label, "B": B, "L": L, "H": H, "P": P, "N": N, "chunk": Q,
+        "dtype": dname, "h0": h0 is not None, "max_abs_err": err,
+        "tol": tol, "state_max_abs_err": state_err, "state_tol": state_tol,
+        "ms": time_ms(lambda: kernel.ssd_scan(xt, da, Bm, Cm, chunk, h0),
+                      iters=10),
+        "plain_ms": time_ms(lambda: ref.ssd_chunked(xt, da, Bm, Cm, chunk,
+                                                    h0), iters=5),
+        "library_ms": None,
+        "library": "none: no one PyTorch call computes the chunked scan",
+        "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+        "mbytes": n_bytes / 1e6,
+    }
+
+
+def recurrence_ms(art, device) -> dict:
+    """Device time of one decode step's recurrences (``ssm.ssd_step``) at
+    the static trace's batch: every Mamba layer with its own state at its
+    own head count, so the states stream from memory as in a step, and
+    with the mixer's operand layouts (B and C strided slices of the conv
+    output), under ``torch.profiler`` (kernel time only: CUDA events
+    would also count the host's launch gaps)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import ssm
+    gen = torch.Generator(device=device).manual_seed(9)
+    layers = []
+    for spec in art.cfg.layers():
+        m = spec.mixer
+        H, P, N, di = m.n_heads, m.head_dim, m.d_state, m.d_inner
+        xbc = torch.randn((BATCH, 1, m.conv_dim), generator=gen,
+                          device=device)
+        layers.append((
+            torch.randn((BATCH, H, P, N), generator=gen, device=device),
+            -torch.rand((BATCH, 1, H), generator=gen, device=device)[:, 0],
+            xbc[:, 0, di:di + N], xbc[:, 0, di + N:di + 2 * N],
+            torch.randn((BATCH, 1, H, P), generator=gen, device=device)[:, 0]))
+
+    def step() -> None:
+        for args in layers:
+            ssm.ssd_step(*args)
+
+    step()
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_STEPS):
+            step()
+        sync(device)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = _busy_us([(e.time_range.start, e.time_range.end)
+                     for e in dev]) / 1e3 / TRACE_STEPS
+    return {"device_ms_per_step": busy if dev else None,
+            "layers": len(layers), "batch": BATCH}
+
+
+def phase_ssm(device, gpu: str) -> dict:
+    """mamba2-1.3b at full width and depth: prune with golden-smoke's
+    recipe, bundle round trip, static and continuous serving through
+    kernel 10, the prefill held to the recurrence, a decode trace and
+    kernel 10 against its plain version."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.common.tree import param_count
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.pipeline import MosaicPipeline
+    from repro_torch.core.recipe import PruneRecipe
+    from repro_torch.core.registry import projections
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.kernels import counters
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.sparse import flop_savings
+
+    cfg = get_config(SSM_ARCH).replace(scan_layers=False)
+    recipe = PruneRecipe.load(os.path.join(HERE, "recipes", SSM_RECIPE)
+                              ).replace(arch=SSM_ARCH)
+    L = cfg.n_layers
+    log("ssm", arch=cfg.name, d_model=cfg.d_model, vocab=cfg.vocab,
+        layer=str(cfg.layer(0)), depth=L, depth_cut="none",
+        recipe=f"recipes/{SSM_RECIPE} with arch {SSM_ARCH}")
+    c = recipe.calibration
+    n_calib = len(SyntheticCorpus(cfg.vocab, seed=c.seed).calibration_batches(
+        c.n_samples, c.batch_size, c.seq_len))
+    counters.reset()
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device=device).manual_seed(0), cfg)
+    n_params = param_count(params)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    art = MosaicPipeline(recipe).run(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    prune_launches = counters.snapshot()
+    want = {"wanda_partials": 2 * len(projections(cfg)),
+            "ssd_scan": L * n_calib}
+    if prune_launches != want:
+        raise AssertionError(f"ssm prune launches {prune_launches}, "
+                             f"expected {want}")
+    st = art.report["stage_seconds"]
+    pk = art.report["pack"]
+    out = {"gpu": gpu, "params": n_params, "init_s": init_s,
+           "profile_s": st.get("rank"), "plan_s": st.get("plan"),
+           "prune_s": st.get("prune"), "pack_s": st.get("pack"),
+           "prune_launches": prune_launches, "expected_prune_launches": want,
+           "params_before": art.report["params_before"],
+           "params_after": art.report["params_after"],
+           "heads_kept": [s.mixer.n_heads for s in art.cfg.layers()],
+           "packed": sorted(f"{i}:{n}" for i, n in art.packed),
+           "skipped": [f"{s['layer']}:{s['name']}" for s in pk["skipped"]],
+           "n_packed": pk["n_packed"], "n_skipped": pk["n_skipped"],
+           "flop_savings": flop_savings(art.packed)}
+    log("ssm", **out)
+
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ssm-bundle-", dir=out_dir)
+    try:
+        loaded, out["bundle"] = bundle_round_trip(art, device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del art
+    torch.cuda.empty_cache()
+    log("ssm", bundle=out["bundle"])
+
+    runs = moe_static_runs(loaded, device, SSM_WAYS)
+    expected = {name: {"ssd_scan": L} for name, _, _ in SSM_WAYS}
+    check_static_runs(runs, expected)
+    if not torch.equal(runs["sparse"]["logits"], runs["dense"]["logits"]):
+        raise AssertionError("ssm: the sparse engine's logits differ from "
+                             "the dense engine's (Mamba serves dense)")
+    out["static"] = {name: {k: v for k, v in r.items()
+                            if k not in ("tokens", "logits")}
+                     for name, r in runs.items()}
+    out["expected_launches"] = expected
+    for name, r in out["static"].items():
+        log("ssm", run=name, **r)
+    out["prefill_vs_recurrence"] = prefill_vs_recurrence(loaded, device)
+    log("ssm", prefill_vs_recurrence=out["prefill_vs_recurrence"])
+    out["tokens_per_s"] = paired_tokens_per_s(loaded, device, SSM_WAYS)
+    log("ssm", tokens_per_s=out["tokens_per_s"])
+
+    reqs = ssm_requests(loaded.cfg.vocab)
+    run = serve_continuous(loaded, device, "ssm-contiguous", reqs,
+                           ssm_serve_config(max_slots=MAX_SLOTS,
+                                            prefill_multiple=1))
+    want = {"ssd_scan": L * len(reqs)}
+    if run["launches"] != want or run["prefills"] != len(reqs):
+        raise AssertionError(f"ssm continuous: launches {run['launches']}, "
+                             f"expected {want}")
+    run["expected_launches"] = want
+    out["continuous_vs_static"] = compare_alone(loaded, device, run)
+    out["continuous"] = {k: v for k, v in run.items()
+                         if k not in ("tokens", "prompts")}
+    out["refusals"] = hybrid_refusals(loaded)
+    log("ssm", **out["continuous"])
+    log("ssm", continuous_vs_static=out["continuous_vs_static"],
+        refusals=out["refusals"])
+
+    out["trace"] = trace_decode(loaded, device, True, "mamba2")
+    out["recurrence"] = rec = recurrence_ms(loaded, device)
+    busy = out["trace"].get("device_busy_ms")
+    rec["share_of_device_busy"] = (
+        rec["device_ms_per_step"] / busy
+        if busy and rec["device_ms_per_step"] else None)
+    log("trace", gpu=gpu, model=SSM_ARCH, recurrence=out["recurrence"],
+        **out["trace"])
+
+    long_in = capture_ssd_inputs(loaded, [reqs[0].prompt], device)
+    cases = [_ssd_case(long_in, None, dtype,
+                       f"layer0 prefill {SSM_LONG_PROMPTS[0]}")
+             for dtype in (torch.float32, torch.bfloat16)]
+    # the 4096-token prompt's final state carries into the 3000-token one
+    _, h_long = ssd_kernel.ssd_scan(long_in["xt"], long_in["da"],
+                                    long_in["Bm"], long_in["Cm"],
+                                    long_in["chunk"])
+    del long_in
+    cases.append(_ssd_case(capture_ssd_inputs(
+        loaded, prompts(loaded.cfg.vocab, 0), device), None, torch.float32,
+        f"layer0 static prefill {BATCH}x{PROMPT_LEN}"))
+    cases.append(_ssd_case(capture_ssd_inputs(
+        loaded, [reqs[1].prompt], device), h_long, torch.float32,
+        f"layer0 prefill {SSM_LONG_PROMPTS[1]} from a carried state"))
+    for case in cases:
+        log("kernels", kernel="ssd_scan", **case)
+    out["cases"] = cases
+    return out
+
+
+def phase_hybrid(device, gpu: str) -> dict:
+    """jamba-v0.1-52b at the JAX package's smoke size: attention, Mamba,
+    MLP and MoE layers in one stack, pruned with the MoE recipe, served
+    static and continuous (unpadded prefills) to equal tokens through
+    kernels 10, 1, 6 and 7."""
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core.pipeline import MosaicPipeline
+    from repro_torch.core.recipe import PruneRecipe
+    from repro_torch.core.registry import projections
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.kernels import counters
+    from repro_torch.models import transformer as T
+    from repro_torch.models.specs import MambaSpec, MLPSpec
+    from repro_torch.serve.scheduler import Request
+    from repro_torch.serve.sparse import (RAGGED_TOKENS_MAX,
+                                          PackedExpertProjection)
+
+    cfg = get_smoke_config(HYBRID_ARCH).replace(scan_layers=False)
+    recipe = PruneRecipe.load(os.path.join(HERE, "recipes", MOE_RECIPE)
+                              ).replace(arch=HYBRID_ARCH)
+    c = recipe.calibration
+    n_calib = len(SyntheticCorpus(cfg.vocab, seed=c.seed).calibration_batches(
+        c.n_samples, c.batch_size, c.seq_len))
+    n_mamba = sum(isinstance(s.mixer, MambaSpec) for s in cfg.layers())
+    counters.reset()
+    params = T.init_model(torch.Generator(device=device).manual_seed(0), cfg)
+    art = MosaicPipeline(recipe).run(params, cfg)
+    prune_launches = counters.snapshot()
+    want = {"wanda_partials": 2 * len(projections(cfg)),
+            "ssd_scan": n_mamba * n_calib}
+    if prune_launches != want:
+        raise AssertionError(f"hybrid prune launches {prune_launches}, "
+                             f"expected {want}")
+    n_stacks = sum(isinstance(p, PackedExpertProjection)
+                   for p in art.packed.values())
+    n_mlp = sum(1 for (i, name) in art.packed
+                if isinstance(art.cfg.layer(i).ffn, MLPSpec)
+                and name in ("gate", "up", "down"))
+    runs = moe_static_runs(art, device, (("static", True, {}),))
+    prefill_big = BATCH * PROMPT_LEN > RAGGED_TOKENS_MAX
+    expected = {"static": {
+        "ssd_scan": n_mamba, "block_sparse": n_mlp * NEW_TOKENS,
+        "grouped_block_sparse": n_stacks * prefill_big,
+        "grouped_block_sparse_ragged": n_stacks * (
+            NEW_TOKENS - 1 + (not prefill_big))}}
+    check_static_runs(runs, expected, art.cfg.layer(1).ffn.n_experts)
+
+    import numpy as np
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=u, prompt=rng.integers(
+        1, cfg.vocab, int(rng.integers(17, 2 * RAGGED_TOKENS_MAX))).tolist(),
+        max_new_tokens=int(rng.integers(8, 17)))
+        for u in range(HYBRID_REQUESTS)]
+    run = serve_continuous(art, device, "hybrid-contiguous", reqs,
+                           ssm_serve_config(max_slots=MAX_SLOTS // 2,
+                                            prefill_multiple=1))
+    big = sum(len(r.prompt) > RAGGED_TOKENS_MAX for r in reqs)
+    want = {"ssd_scan": n_mamba * len(reqs),
+            "block_sparse": n_mlp * (len(reqs) + run["ticks"]),
+            "grouped_block_sparse": n_stacks * big,
+            "grouped_block_sparse_ragged": n_stacks * (
+                len(reqs) - big + run["ticks"])}
+    got = {k: v for k, v in run["launches"].items()
+           if not k.endswith("_experts_computed")}
+    if got != want:
+        raise AssertionError(f"hybrid continuous: launches "
+                             f"{run['launches']}, expected {want}")
+    run["expected_launches"] = want
+    out = {"gpu": gpu, "arch": cfg.name,
+           "layers": [f"{type(s.mixer).__name__}+{type(s.ffn).__name__}"
+                      for s in cfg.layers()],
+           "prune_launches": prune_launches,
+           "static": {k: v for k, v in runs["static"].items()
+                      if k not in ("tokens", "logits")},
+           "expected_launches": expected["static"],
+           "continuous": {k: v for k, v in run.items()
+                          if k not in ("tokens", "prompts")},
+           "continuous_vs_static": compare_alone(art, device, run)}
+    log("hybrid", **out)
+    return out
+
+
 def kernel_table(main: dict, cont: dict, moe: dict, quant: dict,
-                 moe_quant: dict, cases: dict) -> dict:
+                 moe_quant: dict, ssm: dict, cases: dict) -> dict:
     """The contract's kernel line: one representative case per kernel, at
     f32 — kernels 1 and 5 at the main path's decode shape (M=16, the
     plan's block, the gate projection), the Wanda reduction on (4096,
     14336), paged attention at the continuous run's 8 decode lengths,
     flash attention on the 3072-token prompt, the grouped kernels (6, 8)
     at an MoE prefill and the ragged kernels (7, 9) at an MoE decode tick
-    (layer 0's gate stack). The MoE kernels' launches are the default
-    static runs'; kernel 5's the int8 llama run's."""
+    (layer 0's gate stack), the SSD scan (10) at layer 0 of mamba2's
+    4096-token prefill. The MoE kernels' launches are the default static
+    runs'; kernel 5's the int8 llama run's; kernel 10's the mamba2 static
+    run's."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
     bs = next(c for c in cases["block_sparse"] if c["case"] == "layer0.gate"
@@ -1822,6 +2314,7 @@ def kernel_table(main: dict, cont: dict, moe: dict, quant: dict,
     moe_launches = moe["static"]["default"]["launches"]
     q_launches = quant["static"]["int8"]["launches"]
     mq_launches = moe_quant["static"]["int8"]["launches"]
+    ssd = next(c for c in ssm["cases"] if c["dtype"] == "float32")
     runs = {r["label"]: r["launches"] for r in cont["runs"]}
     return {"kernels": [
         {"name": "block_sparse_matmul", "route": "cuda",
@@ -1869,6 +2362,11 @@ def kernel_table(main: dict, cont: dict, moe: dict, quant: dict,
          "replaces": QUANT_RAGGED_TPU,
          "launches": mq_launches.get("grouped_block_sparse_ragged_quant", 0),
          **{k: qrg[k] for k in keys}},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": SSD_TPU,
+         "launches": ssm["static"]["sparse"]["launches"].get("ssd_scan", 0),
+         **{k: ssd[k] for k in keys}},
     ]}
 
 
@@ -1906,8 +2404,19 @@ def main() -> int:
     qgb_cases, qrg_cases = phase_moe_kernels(moe_quant_info, device,
                                              quant=True)
     del moe_quant_info["art"]
+    torch.cuda.empty_cache()              # free the MoE tensors
+    t_ssm = time.perf_counter()
+    ssm_info = phase_ssm(device, gpu)
+    ssm_info["phase_s"] = time.perf_counter() - t_ssm
+    torch.cuda.empty_cache()
+    t_hybrid = time.perf_counter()
+    hybrid_info = phase_hybrid(device, gpu)
+    hybrid_info["phase_s"] = time.perf_counter() - t_hybrid
+    log("phases", ssm_s=ssm_info["phase_s"],
+        hybrid_s=hybrid_info["phase_s"],
+        before_ssm_s=t_ssm - t_start)
     table = kernel_table(main_info, cont_info, moe_info, quant_info,
-                         moe_quant_info, {
+                         moe_quant_info, ssm_info, {
                              "block_sparse": bs_cases, "wanda": wm_cases,
                              "paged": pa_cases, "flash": fa_cases,
                              "grouped": gb_cases, "ragged": rg_cases,
@@ -1925,6 +2434,7 @@ def main() -> int:
               "quant": quant_info, "moe_quant": moe_quant_info,
               "quant_grouped_block_sparse_cases": qgb_cases,
               "quant_ragged_block_sparse_cases": qrg_cases,
+              "ssm": ssm_info, "hybrid": hybrid_info,
               "table": table, "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

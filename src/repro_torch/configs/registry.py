@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-Registered: the dense llama-style decoder of the main path and the
-routed-expert MoE decoder (qwen3-moe). The other architectures of the
-JAX package come with the slices that port their layers (shared-expert
-MoE, SSM, hybrid, VLM, audio)."""
+Registered: the dense llama-style decoder of the main path, the
+routed-expert MoE decoder (qwen3-moe), the attention-free SSM (mamba2)
+and the attention + Mamba + MoE hybrid (jamba). The other architectures
+of the JAX package come with the slices that port their layers
+(shared-expert MoE, VLM, audio)."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +12,8 @@ import importlib
 from repro_torch.models.specs import ModelConfig, scaled_down
 
 ARCHS = {
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     # the paper's own model family
     "llama3-8b": "repro_torch.configs.llama3_8b",

@@ -1,11 +1,11 @@
 """Structured projection pruning: physically remove attention heads,
-feed-forward channels and MoE expert channels (Fig. 4).
+feed-forward channels, MoE expert channels and SSD heads (Fig. 4).
 
 Kept group counts stay multiples of a configurable alignment, so pruned
 widths stay tile friendly. Scores are post-mask magnitudes by default —
 heads hollowed out by unstructured pruning rank lowest, which is exactly
 the paper's composite synergy. Whole-expert removal (``expert_frac``)
-and Mamba (SSD heads) branches come with their slices.
+comes with its slice.
 """
 from __future__ import annotations
 
@@ -15,8 +15,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.registry import register_category
-from repro_torch.models.specs import (AttentionSpec, LayerSpec, MLPSpec,
-                                      ModelConfig, MoESpec)
+from repro_torch.models.specs import (AttentionSpec, LayerSpec, MambaSpec,
+                                      MLPSpec, ModelConfig, MoESpec)
 
 
 def _aligned_keep(total: int, frac: float, align: int, min_keep: int) -> int:
@@ -116,6 +116,47 @@ def prune_moe(block: dict, spec: MoESpec, frac: float,
     return new_block, dataclasses.replace(spec, d_ff=int(keep))
 
 
+# ---------------------------------------------------------------- mamba
+
+def prune_mamba(block: dict, spec: MambaSpec, frac: float,
+                align_heads: int) -> tuple:
+    """Remove whole SSD heads (head_dim-sized channel groups) from the
+    ``in_proj`` columns ``[z, x, B, C, dt]``, the conv channels
+    ``[x, B, C]``, the per-head leaves and the ``out_proj`` rows."""
+    m = block["mamba"]
+    di, P, H = spec.d_inner, spec.head_dim, spec.n_heads
+    GN = spec.n_groups * spec.d_state
+    w_in = _abs32(m["in_proj"])
+    z_mass = w_in[:, :di].sum(0).reshape(H, P).sum(1)
+    x_mass = w_in[:, di:2 * di].sum(0).reshape(H, P).sum(1)
+    out_mass = _abs32(m["out_proj"]).sum(1).reshape(H, P).sum(1)
+    hs = (z_mass + x_mass + out_mass).cpu().numpy()
+    keep = _aligned_keep(H, frac, align_heads, align_heads)
+    kept = np.sort(np.argsort(-hs)[:keep])
+
+    ch = np.concatenate([np.arange(h * P, (h + 1) * P) for h in kept])
+    cols = np.concatenate([ch, di + ch, np.arange(2 * di, 2 * di + 2 * GN),
+                           2 * di + 2 * GN + kept])
+    conv_ch = np.concatenate([ch, np.arange(di, di + 2 * GN)])
+
+    def take(name, idx, dim):
+        w = m[name]
+        return w.index_select(dim, torch.as_tensor(idx, dtype=torch.long,
+                                                   device=w.device))
+
+    new_m = dict(m)
+    new_m["in_proj"] = take("in_proj", cols, 1)
+    new_m["conv_w"] = take("conv_w", conv_ch, 0)
+    new_m["conv_b"] = take("conv_b", conv_ch, 0)
+    for name in ("A_log", "D", "dt_bias"):
+        new_m[name] = take(name, kept, 0)
+    new_m["norm_scale"] = take("norm_scale", ch, 0)
+    new_m["out_proj"] = take("out_proj", ch, 0)
+    new_block = dict(block)
+    new_block["mamba"] = new_m
+    return new_block, dataclasses.replace(spec, d_inner=int(keep) * P)
+
+
 # ---------------------------------------------------------------- driver
 
 def structured_fractions(targets: dict, cfg: ModelConfig,
@@ -148,10 +189,13 @@ def prune_structured(params, cfg: ModelConfig, fractions: dict,
     new_specs = []
     for i, spec in enumerate(cfg.layers()):
         block = params["blocks"][i]
-        if not isinstance(spec.mixer, AttentionSpec):
-            raise NotImplementedError("Mamba head pruning is not ported yet")
-        f = fractions.get((i, "heads"), 0.0)
-        block, mixer = prune_attention(block, spec.mixer, f, align_heads)
+        if isinstance(spec.mixer, AttentionSpec):
+            f = fractions.get((i, "heads"), 0.0)
+            block, mixer = prune_attention(block, spec.mixer, f,
+                                           align_heads)
+        else:
+            f = fractions.get((i, "mamba"), 0.0)
+            block, mixer = prune_mamba(block, spec.mixer, f, align_heads)
         ffn = spec.ffn
         if isinstance(ffn, MoESpec):
             f = fractions.get((i, "ffn"), 0.0)

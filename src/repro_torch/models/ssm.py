@@ -1,0 +1,159 @@
+"""Mamba-2 (SSD, state-space duality) mixer.
+
+y_t = C_t · h_t,   h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t^T
+
+The port of ``repro/models/ssm.py``. A multi-token call computes the
+recurrence chunk-wise (arXiv:2405.21060): a quadratic attention-like
+intra-chunk term plus a linear inter-chunk state recurrence, through
+``kernels/ssd_scan`` — the CUDA kernel on CUDA tensors, its plain version
+(``kernels/ssd_scan/ref.py::ssd_chunked``) on CPU tensors. A single
+decode step (``L == 1`` with a cache) runs the recurrence itself in plain
+torch, as the JAX package does.
+The cache ``{'conv': (B, K-1, conv_dim), 'state': (B, H, P, N) f32}`` is
+updated in place and also returned.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.models.layers import _randn, gen_device
+from repro_torch.models.specs import MambaSpec
+from repro_torch.models.taps import tap
+
+# leaves the JAX package keeps in f32 whatever the model's dtype
+F32_LEAVES = ("A_log", "D", "dt_bias")
+NORM_EPS = 1e-6
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log1p(exp(-|x|)) + max(x, 0)."""
+    return torch.log1p(torch.exp(-x.abs())) + x.clamp(min=0)
+
+
+def init_mamba(gen: Optional[torch.Generator], d_model: int,
+               spec: MambaSpec, dtype=torch.float32) -> dict:
+    """Params on ``gen``'s device (``meta`` when ``gen`` is None). As in
+    the JAX package, ``A_log`` and ``dt_bias`` come from one uniform draw
+    (``dt`` log-uniform in [1e-3, 0.1], ``dt_bias`` its softplus inverse;
+    ``A = -(1 + 15 u)``)."""
+    s_in = 1.0 / math.sqrt(d_model)
+    s_out = 1.0 / math.sqrt(spec.d_inner)
+    H = spec.n_heads
+    dev = gen_device(gen)
+    p = {
+        "in_proj": _randn(gen, (d_model, spec.in_dim), s_in, dtype),
+        "conv_w": _randn(gen, (spec.conv_dim, spec.d_conv),
+                         1.0 / math.sqrt(spec.d_conv), dtype),
+        "conv_b": torch.zeros((spec.conv_dim,), dtype=dtype, device=dev),
+        "D": torch.ones((H,), dtype=torch.float32, device=dev),
+        "norm_scale": torch.ones((spec.d_inner,), dtype=dtype, device=dev),
+        "out_proj": _randn(gen, (spec.d_inner, d_model), s_out, dtype),
+    }
+    if gen is None:
+        p["A_log"] = torch.empty((H,), device="meta")
+        p["dt_bias"] = torch.empty((H,), device="meta")
+        return p
+    u = torch.rand((H,), generator=gen, device=dev)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    p["dt_bias"] = dt + torch.log(-torch.expm1(-dt))
+    p["A_log"] = torch.log(1.0 + u * 15.0)
+    return p
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 carry: Optional[torch.Tensor] = None) -> tuple:
+    """Depthwise causal conv1d. xbc: (B, L, C), w: (C, K), carry: the
+    last K-1 inputs (B, K-1, C) or None (zeros). Returns (out, new
+    carry); mixed dtypes promote as ``jnp.concatenate`` does."""
+    B, L, C = xbc.shape
+    K = w.shape[1]
+    if carry is None:
+        carry = torch.zeros((B, K - 1, C), dtype=xbc.dtype,
+                            device=xbc.device)
+    full = torch.cat([carry, xbc], dim=1)                  # (B, L+K-1, C)
+    out = torch.zeros((B, L, C), dtype=xbc.dtype, device=xbc.device)
+    for k in range(K):
+        out = out + full[:, k:k + L, :] * w[:, k].to(xbc.dtype)
+    return out + b.to(xbc.dtype), full[:, L:, :]
+
+
+def ssd_step(h: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+    """One decode step of the recurrence on the state ``h`` (B, H, P, N)
+    f32, in place: ``h <- h * exp(da) + B xt^T``; returns ``C · h`` (B,
+    H, P) in f32. da: (B, H); Bm, Cm: (B, N); xt: (B, H, P)."""
+    upd = torch.einsum("bn,bhp->bhpn", Bm.float(), xt.float())
+    h.mul_(torch.exp(da)[:, :, None, None]).add_(upd)
+    return torch.einsum("bn,bhpn->bhp", Cm.float(), h)
+
+
+def apply_mamba(params: dict, spec: MambaSpec, x: torch.Tensor,
+                cache: Optional[dict] = None) -> tuple:
+    """x: (B, L, d_model). cache: {'conv': (B, K-1, conv_dim), 'state':
+    (B, H, P, N) f32}, updated in place. Returns (out, new_cache)."""
+    dtype = x.dtype
+    B, L, _ = x.shape
+    H, P, N = spec.n_heads, spec.head_dim, spec.d_state
+    di = spec.d_inner
+
+    tap("mamba_in", x)
+    zxbcdt = x @ params["in_proj"].to(dtype)               # (B, L, in_dim)
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + spec.conv_dim]
+    dt_raw = zxbcdt[..., di + spec.conv_dim:]              # (B, L, H)
+
+    xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"],
+                                 cache["conv"] if cache is not None
+                                 else None)
+    xbc = F.silu(xbc)
+    xs = xbc[..., :di].reshape(B, L, H, P)
+    Bm = xbc[..., di:di + N]                               # (B, L, N)
+    Cm = xbc[..., di + N:di + 2 * N]
+
+    dt = _softplus(dt_raw.float() + params["dt_bias"].float())
+    A = -torch.exp(params["A_log"].float())                # (H,) < 0
+    da = dt * A                                            # (B, L, H)
+    xt = xs * dt[..., None].to(dtype)
+
+    if cache is not None and L == 1:
+        y = ssd_step(cache["state"], da[:, 0], Bm[:, 0], Cm[:, 0],
+                     xt[:, 0])[:, None].to(dtype)          # (B, 1, H, P)
+    else:
+        y, new_state = ssd_ops.ssd_scan(
+            xt, da, Bm, Cm, spec.chunk,
+            cache["state"] if cache is not None else None)
+        if cache is not None:
+            cache["state"].copy_(new_state)
+
+    y = y + params["D"].to(dtype)[None, None, :, None] * xs
+    y = y.reshape(B, L, di)
+
+    # gated RMSNorm, then the out-projection
+    y = y * F.silu(z)
+    var = y.float().square().mean(dim=-1, keepdim=True)
+    y = (y.float() * torch.rsqrt(var + NORM_EPS)).to(dtype)
+    y = y * params["norm_scale"].to(dtype)
+    tap("mamba_out", y)
+    out = y @ params["out_proj"].to(dtype)
+
+    if cache is None:
+        return out, None
+    cache["conv"].copy_(new_conv)
+    return out, cache
+
+
+def init_mamba_cache(batch: int, spec: MambaSpec, dtype=torch.bfloat16,
+                     device=None) -> dict:
+    """Conv carry in the cache dtype, SSD state in f32."""
+    return {
+        "conv": torch.zeros((batch, spec.d_conv - 1, spec.conv_dim),
+                            dtype=dtype, device=device),
+        "state": torch.zeros((batch, spec.n_heads, spec.head_dim,
+                              spec.d_state), dtype=torch.float32,
+                             device=device),
+    }

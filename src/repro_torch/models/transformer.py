@@ -1,9 +1,10 @@
-"""Dense decoder: embedding -> [LayerSpec...] -> norm -> LM head.
+"""Decoder: embedding -> [LayerSpec...] -> norm -> LM head.
 
 Layers run in a Python loop over per-layer params (``blocks`` is a
-list). A layer's feed-forward is a dense MLP or an MoE layer
-(``models/moe.py``). Mamba layers, scanned stacks and frontend
-embeddings raise ``NotImplementedError`` until their slices are ported.
+list). A layer's mixer is GQA attention or a Mamba-2 SSD mixer
+(``models/ssm.py``); its feed-forward a dense MLP, an MoE layer
+(``models/moe.py``) or none. Scanned stacks and frontend embeddings
+raise ``NotImplementedError`` until their slices are ported.
 """
 from __future__ import annotations
 
@@ -11,14 +12,16 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.common.tree import cast_tree
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
-from repro_torch.models.specs import (AttentionSpec, LayerSpec, MLPSpec,
-                                      ModelConfig, MoESpec)
+from repro_torch.models import ssm as SSM
+from repro_torch.models.specs import (AttentionSpec, LayerSpec, MambaSpec,
+                                      MLPSpec, ModelConfig, MoESpec)
 
 
 def _check_ported(spec: LayerSpec) -> None:
-    if not isinstance(spec.mixer, AttentionSpec):
+    if not isinstance(spec.mixer, (AttentionSpec, MambaSpec)):
         raise NotImplementedError(
             f"{type(spec.mixer).__name__} mixers are not ported yet")
     if spec.ffn is not None and not isinstance(spec.ffn,
@@ -41,9 +44,11 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     _check_ported(spec)
     dev = L.gen_device(gen)
     p: dict[str, Any] = {"norm1": L.init_norm(cfg.norm, cfg.d_model, dtype,
-                                              dev),
-                         "attn": L.init_attention(gen, cfg.d_model,
-                                                  spec.mixer, dtype)}
+                                              dev)}
+    if isinstance(spec.mixer, AttentionSpec):
+        p["attn"] = L.init_attention(gen, cfg.d_model, spec.mixer, dtype)
+    else:
+        p["mamba"] = SSM.init_mamba(gen, cfg.d_model, spec.mixer, dtype)
     if spec.ffn is not None:
         p["norm2"] = L.init_norm(cfg.norm, cfg.d_model, dtype, dev)
         if isinstance(spec.ffn, MoESpec):
@@ -73,18 +78,34 @@ def init_model(gen: torch.Generator, cfg: ModelConfig,
     return params
 
 
+def cast_params(params: dict, dtype: torch.dtype) -> dict:
+    """Floating leaves to ``dtype`` (the engines' one cast at start-up),
+    except the Mamba leaves the JAX package keeps in f32 whatever the
+    compute dtype (``ssm.F32_LEAVES``)."""
+    out = cast_tree(params, dtype)
+    for blk, new in zip(params["blocks"], out["blocks"]):
+        if "mamba" in blk:
+            for name in SSM.F32_LEAVES:
+                new["mamba"][name] = blk["mamba"][name]
+    return out
+
+
 # ---------------------------------------------------------------- cache
+
+def init_block_cache(batch: int, s_max: int, spec: LayerSpec,
+                     dtype=torch.bfloat16, device=None) -> dict:
+    _check_ported(spec)
+    if isinstance(spec.mixer, AttentionSpec):
+        return {"attn": L.init_attention_cache(batch, s_max, spec.mixer,
+                                               dtype, device)}
+    return {"mamba": SSM.init_mamba_cache(batch, spec.mixer, dtype, device)}
+
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                dtype=torch.bfloat16, device=None) -> list:
     _check_unrolled(cfg)
-    out = []
-    for i in range(cfg.n_layers):
-        spec = cfg.layer(i)
-        _check_ported(spec)
-        out.append({"attn": L.init_attention_cache(batch, s_max, spec.mixer,
-                                                   dtype, device)})
-    return out
+    return [init_block_cache(batch, s_max, cfg.layer(i), dtype, device)
+            for i in range(cfg.n_layers)]
 
 
 # ------------------------------------------------------------- slot pool
@@ -92,7 +113,8 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 def init_cache_pool(cfg: ModelConfig, max_slots: int, max_seq: int,
                     dtype=torch.bfloat16, device=None) -> list:
     """A fixed ``(max_slots, max_seq)`` KV pool for continuous batching:
-    an ordinary cache whose batch axis is the slot axis. Sequences are
+    an ordinary cache whose batch axis is the slot axis (a Mamba layer's
+    conv carry and state have one row per slot). Sequences are
     prefilled into single slots (``write_cache_slot``) and decoded at
     per-slot offsets (a vector ``cache_index`` in ``forward``)."""
     return init_cache(cfg, max_slots, max_seq, dtype, device)
@@ -105,12 +127,18 @@ def init_paged_pool(cfg: ModelConfig, n_blocks: int, block_size: int,
     request through per-request block tables (``block_tables`` in
     ``forward``). The extra last block (index ``n_blocks``) is the
     scratch block: right-padded prefill positions and inactive decode
-    slots write there; the allocator never hands it out."""
+    slots write there; the allocator never hands it out.
+
+    Attention-only configs: an SSM mixer's state is recurrent, not
+    positional, so it has nothing to page."""
     _check_unrolled(cfg)
     pool = []
     for i in range(cfg.n_layers):
         spec = cfg.layer(i)
         _check_ported(spec)
+        if not isinstance(spec.mixer, AttentionSpec):
+            raise ValueError("paged KV pools support attention mixers "
+                             f"only (layer {i} is {type(spec.mixer).__name__})")
         pool.append({"attn": L.init_paged_attention_cache(
             n_blocks + 1, block_size, spec.mixer, dtype, device)})
     return pool
@@ -127,10 +155,12 @@ def copy_pool_block(pool: list, src: int, dst: int) -> list:
 
 def write_cache_slot(pool: list, row: list, slot: int) -> list:
     """Copy a batch-1 cache ``row`` (from a B=1 prefill) into slot
-    ``slot`` of ``pool``, in place; returns the pool."""
+    ``slot`` of ``pool``, in place: the K/V rows of attention layers, the
+    conv carry and state of Mamba layers. Returns the pool."""
     for p_layer, r_layer in zip(pool, row):
-        for name, arena in p_layer["attn"].items():
-            arena[slot].copy_(r_layer["attn"][name][0])
+        for kind, leaves in p_layer.items():
+            for name, arena in leaves.items():
+                arena[slot].copy_(r_layer[kind][name][0])
     return pool
 
 
@@ -146,12 +176,18 @@ def apply_block(block_params: dict, cfg: ModelConfig, spec: LayerSpec,
     (the serving block-sparse path; it drops the MoE aux loss)."""
     _check_ported(spec)
     h = L.apply_norm(block_params["norm1"], cfg.norm, x)
-    mix, nc = L.apply_attention(
-        block_params["attn"], spec.mixer, h, positions,
-        cache["attn"] if cache is not None else None, cache_index,
-        block_tables=block_tables, n_valid=n_valid,
-        paged_kernel=paged_kernel)
-    new_cache = {"attn": nc} if nc is not None else {}
+    kind = "attn" if isinstance(spec.mixer, AttentionSpec) else "mamba"
+    if kind == "attn":
+        mix, nc = L.apply_attention(
+            block_params["attn"], spec.mixer, h, positions,
+            cache["attn"] if cache is not None else None, cache_index,
+            block_tables=block_tables, n_valid=n_valid,
+            paged_kernel=paged_kernel)
+    else:
+        mix, nc = SSM.apply_mamba(block_params["mamba"], spec.mixer, h,
+                                  cache["mamba"] if cache is not None
+                                  else None)
+    new_cache = {kind: nc} if nc is not None else {}
     x = x + mix
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn is not None:

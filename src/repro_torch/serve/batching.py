@@ -12,7 +12,9 @@ Two pool backends, selected by ``ServeConfig.block_size``:
 - **contiguous** (``block_size=None``): one ``(max_slots, max_seq)``
   region per slot, per-slot lengths as the vector ``cache_index``. A
   prompt longer than ``layers.DENSE_ATTN_MAX`` prefills through the
-  flash-attention kernel on the card.
+  flash-attention kernel on the card. The only backend for SSM/hybrid
+  models, whose prompts prefill unpadded (``prefill_multiple=1``): the
+  recurrent state would integrate padding.
 - **paged** (``block_size=N``): fixed-size KV blocks in one shared
   arena (``transformer.init_paged_pool``), per-request block tables, a
   host-side block allocator with refcounts + copy-on-write, prefix
@@ -39,9 +41,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.common.tree import cast_tree, tree_device
+from repro_torch.common.tree import tree_device
 from repro_torch.models import transformer as T
-from repro_torch.models.specs import ModelConfig
+from repro_torch.models.specs import AttentionSpec, ModelConfig
 from repro_torch.serve import metrics as M
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.engine import (make_prefill_step, make_serve_step,
@@ -86,9 +88,20 @@ class ContinuousEngine:
         if cfg.scan_layers:
             raise ValueError("continuous batching needs an unrolled config "
                              "(cfg.replace(scan_layers=False))")
+        hybrid = any(not isinstance(cfg.layer(i).mixer, AttentionSpec)
+                     for i in range(cfg.n_layers))
+        if serve.prefill_multiple != 1 and hybrid:
+            # attention masks padded prefill positions via the per-slot
+            # length; an SSM integrates them into its recurrent state
+            raise ValueError("SSM/hybrid mixers need unpadded prefills: "
+                             "pass prefill_multiple=1")
+        if serve.paged and hybrid:
+            raise ValueError("paged KV pools support attention-only "
+                             "configs (SSM state is recurrent, not "
+                             "positional)")
         self.serve = serve
         self.cfg = cfg
-        self.params = cast_tree(params, serve.compute_dtype)
+        self.params = T.cast_params(params, serve.compute_dtype)
         self.device = tree_device(self.params)
         self.max_slots = serve.max_slots
         self.max_seq = serve.max_seq

@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.common.tree import cast_tree, tree_device
+from repro_torch.common.tree import tree_device
 from repro_torch.models import transformer as T
 from repro_torch.models.specs import ModelConfig
 from repro_torch.serve.config import ServeConfig
@@ -190,7 +190,7 @@ class Engine:
                  packed: Optional[dict] = None):
         self.serve = serve if serve is not None else ServeConfig()
         self.cfg = cfg
-        self.params = cast_tree(params, self.serve.compute_dtype)
+        self.params = T.cast_params(params, self.serve.compute_dtype)
         self.device = tree_device(self.params)
         self.max_seq = self.serve.max_seq
         self.mlp_apply = (make_sparse_mlp_apply(

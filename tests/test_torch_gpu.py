@@ -24,11 +24,16 @@ from repro_torch.kernels.grouped_block_sparse import ref as gbs_ref
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as pa_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.kernels.wanda_metric import kernel as wm_kernel
 from repro_torch.kernels.wanda_metric import ops as wm_ops
 from repro_torch.kernels.wanda_metric import ref as wm_ref
 from repro_torch.models import moe
-from repro_torch.models.specs import MoESpec
+from repro_torch.models import transformer as T
+from repro_torch.models.specs import (LayerSpec, MambaSpec, ModelConfig,
+                                      MoESpec)
 from repro_torch.serve import sparse as serve_sparse
 from repro_torch.serve.sparse import pack_projection, sparse_linear
 
@@ -639,3 +644,112 @@ def test_quant_kernels_raise_on_what_they_do_not_take(cuda):
         with pytest.raises(ValueError):
             gbs_kernel.quant_ragged_block_sparse_matmul(
                 xx[0], tiles, s.counts, s.indices, s.slots, scales, te, 16)
+
+
+# ------------------------------------------------------- SSD scan (Mamba)
+
+def _ssd_case(B, L, H, P, N, seed, h0, dtype, cuda):
+    """xt (B, L, H, P), da (B, L, H) f32 <= 0, and Bm, Cm as strided
+    slices of one (B, L, H * P + 2N) conv output, as the mixer passes
+    them; h0 random or None."""
+    rng = np.random.default_rng(seed)
+    xbc = torch.from_numpy(rng.standard_normal(
+        (B, L, H * P + 2 * N)).astype(np.float32)).to(cuda, dtype)
+    xt = torch.from_numpy(rng.standard_normal(
+        (B, L, H, P)).astype(np.float32)).to(cuda, dtype)
+    da = torch.from_numpy(-np.abs(rng.standard_normal(
+        (B, L, H))).astype(np.float32) * 0.5).to(cuda)
+    hs = (torch.from_numpy(rng.standard_normal(
+        (B, H, P, N)).astype(np.float32)).to(cuda) if h0 else None)
+    di = H * P
+    return xt, da, xbc[..., di:di + N], xbc[..., di + N:], hs
+
+
+# (B, L, H, P, N, chunk): the smoke mixer's shape (one chunk, a ragged
+# tail) and mamba2's (L a multiple of the chunk, and 600: two full
+# chunks and a padded third)
+SSD_SHAPES = [(2, 37, 8, 16, 16, 8), (3, 64, 4, 32, 16, 64),
+              (1, 512, 64, 64, 128, 256), (1, 600, 64, 64, 128, 256)]
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(cuda, shape, h0, dtype):
+    B, L, H, P, N, chunk = shape
+    xt, da, Bm, Cm, hs = _ssd_case(B, L, H, P, N, 60 + L, h0, dtype, cuda)
+    assert Bm.stride(1) == H * P + 2 * N, "read in place, by stride"
+    counters.reset()
+    y, h = ssd_ops.ssd_scan(xt, da, Bm, Cm, chunk, hs)
+    torch.cuda.synchronize()
+    assert counters.snapshot() == {"ssd_scan": 1}
+    assert y.shape == xt.shape and y.dtype == dtype
+    assert h.shape == (B, H, P, N) and h.dtype == torch.float32
+    y_p, h_p = ssd_ref.ssd_chunked(xt, da, Bm, Cm, chunk, hs)
+    # f32: summation order; bf16: the plain version rounds the scores
+    # and both output terms to bf16 (as JAX does), the kernel once
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    for got, want in ((y, y_p), (h, h_p)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * max(1.0, want.float().abs().max().item())
+
+
+def test_ssd_scan_kernel_raises_on_what_it_does_not_take(cuda):
+    xt, da, Bm, Cm, hs = _ssd_case(1, 32, 2, 16, 8, 70, True,
+                                   torch.float32, cuda)
+    bad = [
+        (xt.cpu(), da.cpu(), Bm.cpu(), Cm.cpu(), 8, hs.cpu()),   # device
+        (xt, da, Bm, Cm.cpu(), 8, hs),                          # mixed
+        (xt.half(), da, Bm.half(), Cm.half(), 8, hs),           # dtype
+        (xt, da, Bm.bfloat16(), Cm, 8, hs),                     # mixed
+        (xt, da.bfloat16(), Bm, Cm, 8, hs),                     # da f32
+        (xt, da, Bm, Cm, 8, hs.double()),                       # h0 f32
+        (xt.transpose(2, 3).contiguous().transpose(2, 3), da, Bm, Cm, 8,
+         hs),                                                   # layout
+        (xt, da, Bm.transpose(1, 2).contiguous().transpose(1, 2), Cm, 8,
+         hs),                                                   # N stride
+        (xt, da[:, :16], Bm, Cm, 8, hs),                        # shapes
+        (xt, da, Bm, Cm, 8, hs[:, :1]),
+        (xt[..., :8].contiguous(), da, Bm, Cm, 8, hs[..., :8, :]),  # P % 16
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            ssd_kernel.ssd_scan(*args)
+    long = _ssd_case(1, 300, 2, 16, 8, 71, False, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        ssd_kernel.ssd_scan(*long[:4], 300)                     # chunk
+    wide = _ssd_case(1, 32, 2, 16, 136, 72, False, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        ssd_kernel.ssd_scan(*wide[:4], 8)                       # N
+
+
+def test_mamba_prefill_reaches_the_kernel_and_decode_does_not(cuda):
+    """Every multi-token Mamba call launches kernel 10 once per layer;
+    a decode step runs the recurrence in plain torch. The prefill's
+    logits and states agree with stepping the prompt token by token."""
+    spec = MambaSpec(d_inner=128, d_state=32, head_dim=32, chunk=16)
+    cfg = ModelConfig(name="t", d_model=64, vocab=256,
+                      pattern=(LayerSpec(spec, None),), n_periods=3,
+                      vocab_pad_multiple=16, scan_layers=False, remat=False)
+    params = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg)
+    toks = torch.randint(0, 256, (2, 40), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    f32 = dict(compute_dtype=torch.float32)
+    cache = T.init_cache(cfg, 2, 40, torch.float32, cuda)
+    counters.reset()
+    logits, cache, _ = T.forward(params, cfg, toks, cache=cache,
+                                 cache_index=0, **f32)
+    torch.cuda.synchronize()
+    assert counters.snapshot() == {"ssd_scan": cfg.n_layers}
+    step = T.init_cache(cfg, 2, 40, torch.float32, cuda)
+    counters.reset()
+    for i in range(40):
+        li, step, _ = T.forward(params, cfg, toks[:, i:i + 1], cache=step,
+                                cache_index=i, **f32)
+    torch.cuda.synchronize()
+    assert counters.snapshot() == {}
+    assert (li[:, -1] - logits[:, -1]).abs().max().item() <= 1e-3
+    for a, b in zip(cache, step):
+        sa, sb = a["mamba"]["state"], b["mamba"]["state"]
+        assert (sa - sb).abs().max().item() <= 1e-4 * max(
+            1.0, sb.abs().max().item())

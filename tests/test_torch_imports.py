@@ -51,7 +51,10 @@ def test_port_files_import_no_jax_and_no_repro():
             "configs/qwen3_moe_30b_a3b.py",
             "kernels/grouped_block_sparse/kernel.py",
             "kernels/grouped_block_sparse/ops.py",
-            "kernels/grouped_block_sparse/ref.py", "core/quant.py"} <= rel
+            "kernels/grouped_block_sparse/ref.py", "core/quant.py",
+            "models/ssm.py", "configs/mamba2_1_3b.py",
+            "configs/jamba_v01_52b.py", "kernels/ssd_scan/kernel.py",
+            "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ref.py"} <= rel
     bad = {os.path.relpath(f, REPO): sorted(set(r for r in _imported_roots(f)
                                                 if r in FORBIDDEN))
            for f in files}

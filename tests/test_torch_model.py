@@ -214,16 +214,21 @@ def test_vector_cache_index_decodes_ragged_offsets(model):
 
 
 def test_scan_and_moe_raise_not_implemented():
-    """Scanned stacks and Mamba mixers raise until their slices are
-    ported. MoE feed-forwards came with their slice and no longer raise
-    (their parity with JAX is in ``tests/test_torch_moe.py``)."""
+    """Scanned stacks and frontend embeddings raise until their slices
+    are ported. MoE feed-forwards and Mamba mixers came with their
+    slices and no longer raise (their parity with JAX is in
+    ``tests/test_torch_moe.py`` and ``tests/test_torch_ssm.py``)."""
     cfg = config_from_dict(jax_config_to_dict(small_config(moe=True)))
     params = T.init_model(torch.Generator().manual_seed(0), cfg)
     assert "moe" in params["blocks"][1] and "mlp" in params["blocks"][0]
     hybrid = config_from_dict(jax_config_to_dict(
         small_config(moe=True, mamba=True)))
-    with pytest.raises(NotImplementedError):
-        T.init_model(torch.Generator().manual_seed(0), hybrid)
+    params = T.init_model(torch.Generator().manual_seed(0), hybrid)
+    assert "mamba" in params["blocks"][2] and "attn" not in params[
+        "blocks"][2]
     with pytest.raises(NotImplementedError):
         T.init_model(torch.Generator().manual_seed(0),
                      get_config("llama3-8b"))
+    with pytest.raises(NotImplementedError):
+        T.forward(params, hybrid, torch.zeros((1, 4), dtype=torch.long),
+                  frontend_embeds=torch.zeros((1, 1, hybrid.d_model)))
