@@ -34,7 +34,9 @@ Phases, each printing one line of its own:
                 by kernel and by op, device idle share;
 6. kernels    — each kernel against its plain PyTorch version at the
                 shapes of the paths above, with times, bounds and a
-                library yardstick;
+                library yardstick; kernel 1 also at a 512-row prefill,
+                and in f32 held bitwise to kernel 6 with one expert
+                (the fmaf order kernels 6-9 keep);
 7. moe        — qwen3-moe-30b-a3b at full width (depth cut to 4 layers,
                 random weights from seed 0), after the llama3-8b phases'
                 tensors are freed: ``MosaicPipeline`` on
@@ -58,7 +60,7 @@ Phases, each printing one line of its own:
                 int8 and "none" logits bitwise equal and exact launch
                 counts; warm tok/s of each way twice in mirrored order;
                 decode traces int8 and "none"; kernel 5 at the layer-0
-                gate;
+                gate and down, 16 and 128 rows;
 9. moe quant  — qwen3-moe-30b-a3b pruned with the MoE recipe and
                 ``quant="int8"``: the bundle round trip (tiles, absolute
                 slots, stacked scales exact), 4 x 32 tokens on the static
@@ -102,6 +104,7 @@ import re
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -117,6 +120,44 @@ BATCH, PROMPT_LEN, NEW_TOKENS = 4, 32, 32
 TRACE_STEPS = 8                    # decode steps under the profiler
 L2_FLUSH_BYTES = 256 << 20         # > the H100's 50 MB L2
 BLOCK_SPARSE_TPU = "src/repro/kernels/block_sparse/kernel.py:111"
+# Kernels 1 and 5 of the first design (one 256-thread block per 16-row
+# tile, scalar loads, FFMA in both types), ms at each case of
+# phase_kernels / phase_quant: this script's own earlier run on an NVIDIA
+# H100 80GB HBM3 at 700.00 W. Keys (case, M, block, dtype).
+FIRST_DESIGN_MS = {
+    ("layer0.gate", 16, 16, "float32"): 0.2087,
+    ("layer0.gate", 16, 16, "bfloat16"): 0.1798,
+    ("layer0.gate", 128, 16, "float32"): 1.2343,
+    ("layer0.gate", 128, 16, "bfloat16"): 1.1477,
+    ("layer0.up", 16, 16, "float32"): 0.2142,
+    ("layer0.up", 16, 16, "bfloat16"): 0.1830,
+    ("layer0.up", 128, 16, "float32"): 1.2379,
+    ("layer0.up", 128, 16, "bfloat16"): 1.1508,
+    ("layer0.down", 16, 16, "float32"): 0.5434,
+    ("layer0.down", 16, 16, "bfloat16"): 0.4867,
+    ("layer0.down", 128, 16, "float32"): 2.0567,
+    ("layer0.down", 128, 16, "bfloat16"): 1.9108,
+    ("layer0.gate/crop", 16, 128, "float32"): 0.3180,
+    ("layer0.gate/crop", 16, 128, "bfloat16"): 0.3188,
+    ("layer0.gate/crop", 128, 128, "float32"): 0.5874,
+    ("layer0.gate/crop", 128, 128, "bfloat16"): 0.5839,
+    ("layer0.up/crop", 16, 128, "float32"): 0.3580,
+    ("layer0.up/crop", 16, 128, "bfloat16"): 0.3554,
+    ("layer0.up/crop", 128, 128, "float32"): 0.5920,
+    ("layer0.up/crop", 128, 128, "bfloat16"): 0.5848,
+    ("layer0.down/crop", 16, 128, "float32"): 0.6420,
+    ("layer0.down/crop", 16, 128, "bfloat16"): 0.6189,
+    ("layer0.down/crop", 128, 128, "float32"): 0.6196,
+    ("layer0.down/crop", 128, 128, "bfloat16"): 0.6085,
+}
+FIRST_DESIGN_QUANT_MS = {
+    ("layer0.gate", 16, 16, "float32"): 0.2026,
+    ("layer0.gate", 16, 16, "bfloat16"): 0.2016,
+}
+PREFILL_ROWS = 512                 # 4 x 128 tokens, the continuous chunk
+# kernel 4 at head dims 192 and 256: (model, n_q, n_kv, head_dim) of the
+# JAX package's gemma-2b and nemotron-4-340b configurations
+WIDE_HEADS = (("gemma-2b", 8, 1, 256), ("nemotron-4-340b", 96, 8, 192))
 WANDA_TPU = "src/repro/kernels/wanda_metric/kernel.py:29"
 PAGED_TPU = "src/repro/kernels/paged_attention/kernel.py:73"
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:61"
@@ -267,7 +308,29 @@ def phase_build(device) -> dict:
     regs = out["per_source"][bs_kernel.SOURCE]["registers"]
     out["kernel1_f32_b16_registers"] = next(
         (n for name, n in regs.items()
-         if "19block_sparse_kernelIfLi16E" in name), None)
+         if "19block_sparse_kernelIfLi16ELi16E" in name), None)
+    # kernels 1 and 5: registers and spills a (dtype, block, M-tile), and
+    # the dynamic shared memory a block takes at decode and prefill rows
+    report = built[sources.index(bs_kernel.SOURCE)][2]
+    spills = ptxas_spills(report)
+    out["block_sparse_kernels"] = {}
+    for name, n in regs.items():
+        m = re.search(r"\d((?:quant_)?block_sparse_kernel)I(f|13__nv_bfloat16)"
+                      r"Li(\d+)ELi(\d+)E", name)
+        if m:
+            dt = "f32" if m.group(2) == "f" else "bf16"
+            out["block_sparse_kernels"][
+                f"{m.group(1)}<{dt},{m.group(3)},{m.group(4)}>"] = {
+                "registers": n, "spill_bytes": spills.get(name, 0)}
+    out["block_sparse_smem_bytes"] = {
+        f"{w}/{str(dt)[6:]}/M{M}": bs_kernel.tile_config(
+            M, 16, dt, w)["smem_bytes"]
+        for w in ("dense", "int8") for dt in bs_kernel.DTYPES
+        for M in (16, 128)}
+    if report and (out["kernel1_f32_b16_registers"] is None
+                   or len(out["block_sparse_kernels"]) != 32):
+        raise AssertionError("the ptxas report names no kernel-1/5 "
+                             "instantiations as expected")
     # mangled names: ...<len>ssd_<stage>_kernelI<dtype>[Li<PS>E]E...
     out["kernel10_registers"] = {}
     for name, n in out["per_source"][ssd_kernel.SOURCE]["registers"].items():
@@ -288,6 +351,18 @@ def ptxas_registers(report: str) -> dict:
             entry = ln.split("'")[1]
         elif "registers" in ln and entry is not None:
             out[entry] = int(ln.split("Used")[1].split()[0])
+            entry = None
+    return out
+
+
+def ptxas_spills(report: str) -> dict:
+    """{mangled kernel name: spill store bytes} from ``nvcc -Xptxas -v``."""
+    out, entry = {}, None
+    for ln in report.splitlines():
+        if "Function properties for" in ln:
+            entry = ln.split("for", 1)[1].strip()
+        elif "spill stores" in ln and entry is not None:
+            out[entry] = int(ln.split("bytes spill stores")[0].split(",")[-1])
             entry = None
     return out
 
@@ -883,11 +958,30 @@ def _check_close(name: str, got, plain, dtype: str) -> tuple:
     return err, tol
 
 
+def _tile_record(M: int, block: int, dtype, weight: str) -> dict:
+    """The tile the launch takes (the Python rule, held to the library's
+    own choice)."""
+    from repro_torch.kernels.block_sparse import kernel
+    cfg = kernel.tile_config(M, block, dtype, weight)
+    lib = kernel.library_tile_config(M, block, dtype, weight)
+    if lib != {k: cfg[k] for k in lib}:
+        raise AssertionError(f"tile rule {cfg} differs from the "
+                             f"library's {lib}")
+    return cfg
+
+
+def _rates(rec: dict, n_bytes: float, n_ops: float) -> None:
+    """Achieved TB/s and TFLOP/s of the work the function needs."""
+    rec["tb_per_s"] = n_bytes / (rec["ms"] * 1e-3) / 1e12
+    rec["tflop_per_s"] = n_ops / (rec["ms"] * 1e-3) / 1e12
+
+
 def _block_sparse_case(w, plan_mask, M: int, block: int, dtype, gen,
                        label: str) -> dict:
     import torch
     from repro_torch.kernels.block_sparse import kernel, ref
     from repro_torch.kernels.block_sparse.ops import plan_blocks
+    from repro_torch.kernels.grouped_block_sparse import kernel as g_kernel
     dev = w.device
     counts, indices = plan_blocks(plan_mask.cpu().numpy())
     counts = torch.as_tensor(counts, device=dev)
@@ -898,8 +992,21 @@ def _block_sparse_case(w, plan_mask, M: int, block: int, dtype, gen,
     x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
     y = kernel.block_sparse_matmul(x, w, counts, indices, block)
     plain = ref.block_sparse_matmul_ref(x, w, plan_mask, block, block)
-    torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
+    order = None
+    if dtype == torch.float32 and block == 16:
+        # the fmaf order of the tile routine kernels 6-9 keep: kernel 6
+        # with one expert over the same plan gives the same bits
+        y6 = g_kernel.grouped_block_sparse_matmul(
+            x[None], w[None], counts[None], indices[None],
+            torch.ones((1, M // 16), dtype=torch.int32, device=dev), block,
+            16)
+        order = bool(torch.equal(y, y6[0]))
+        if not order:
+            raise AssertionError(
+                f"block_sparse {label} M={M}: f32 kernel 1 differs from "
+                f"kernel 6 by {float((y - y6[0]).abs().max())}")
+    torch.cuda.synchronize()
     err, tol = _check_close(f"block_sparse {label} M={M} b={block}", y,
                             plain, dname)
     if int(counts[0]) != 0 or float(y[:, :block].abs().max()) != 0.0:
@@ -908,18 +1015,23 @@ def _block_sparse_case(w, plan_mask, M: int, block: int, dtype, gen,
     s = w.element_size()
     n_bytes = (M * K + live * block * block + M * N) * s \
         + 4 * (counts.numel() + indices.numel())
-    b_ms, b_by = bound_ms(n_bytes, 2.0 * M * live * block * block, dname)
-    return {
+    n_ops = 2.0 * M * live * block * block
+    b_ms, b_by = bound_ms(n_bytes, n_ops, dname)
+    rec = {
         "case": label, "M": M, "K": K, "N": N, "block": block,
         "dtype": dname, "density": live / (counts.numel() * K // block),
-        "max_abs_err": err, "tol": tol,
+        "max_abs_err": err, "tol": tol, "bitwise_kernel6": order,
+        "tile": _tile_record(M, block, dtype, "dense"),
         "ms": time_ms(lambda: kernel.block_sparse_matmul(
             x, w, counts, indices, block)),
+        "ms_first_design": FIRST_DESIGN_MS.get((label, M, block, dname)),
         "plain_ms": time_ms(lambda: ref.block_sparse_matmul_ref(
             x, w, plan_mask, block, block)),
         "library_ms": time_ms(lambda: torch.matmul(x, w)),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    _rates(rec, n_bytes, n_ops)
+    return rec
 
 
 def phase_kernels(main: dict, device) -> tuple:
@@ -952,6 +1064,10 @@ def phase_kernels(main: dict, device) -> tuple:
                     w, m16, M, b, dtype, gen, f"layer0.{name}"))
                 bs_cases.append(_block_sparse_case(
                     w128, m128, M, 128, dtype, gen, f"layer0.{name}/crop"))
+        if name != "up":                         # the 64-row tiles' path
+            for dtype in (torch.float32, torch.bfloat16):
+                bs_cases.append(_block_sparse_case(
+                    w, m16, PREFILL_ROWS, b, dtype, gen, f"layer0.{name}"))
     for c in bs_cases:
         log("kernels", kernel="block_sparse", **c)
 
@@ -1089,6 +1205,12 @@ def phase_attention_kernels(main: dict, cont: dict, device) -> tuple:
                                         gen, device))
         fa.append(_flash_attention_case(spec, LONG_PROMPT, dtype, gen,
                                         device))
+    # the widest heads the kernel takes, at their models' head counts
+    for model, n_q, n_kv, D in WIDE_HEADS:
+        for dtype in (torch.float32, torch.bfloat16):
+            fa.append({"model": model, **_flash_attention_case(
+                SimpleNamespace(n_q=n_q, n_kv=n_kv, head_dim=D),
+                LONG_PROMPT, dtype, gen, device)})
     for c in pa:
         log("kernels", kernel="paged_attention", **c)
     for c in fa:
@@ -1613,13 +1735,16 @@ def _quant_block_sparse_case(w, plan, M: int, dtype, gen,
     live = int(plan.counts.sum())
     n_bytes = (M * K + M * N) * x.element_size() + live * (b * b + 12) \
         + 4 * plan.counts.numel()
-    b_ms, b_by = bound_ms(n_bytes, 2.0 * M * live * b * b, dname)
-    return {
+    n_ops = 2.0 * M * live * b * b
+    b_ms, b_by = bound_ms(n_bytes, n_ops, dname)
+    rec = {
         "case": label, "M": M, "K": K, "N": N, "block": b, "dtype": dname,
         "density": live / (plan.counts.numel() * K // b),
         "tiles": int(plan.tiles.shape[0]),
         "max_abs_err": err, "tol": tol,
+        "tile": _tile_record(M, b, dtype, "int8"),
         "ms": time_ms(lambda: kernel.quant_block_sparse_matmul(x, *args)),
+        "ms_first_design": FIRST_DESIGN_QUANT_MS.get((label, M, b, dname)),
         "kernel1_ms": time_ms(lambda: kernel.block_sparse_matmul(
             x, wd, plan.counts, plan.indices, b)),
         "plain_ms": time_ms(lambda: ref.quant_block_sparse_matmul_ref(
@@ -1628,12 +1753,14 @@ def _quant_block_sparse_case(w, plan, M: int, dtype, gen,
         "library": "torch.matmul over the dequantised block-masked weight",
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    _rates(rec, n_bytes, n_ops)
+    return rec
 
 
 def phase_quant(main: dict, device, gpu: str) -> dict:
     """llama3-8b at full width, 4 layers, pruned with the int8 recipe and
     served three ways on the static engine; kernel 5 at the layer-0
-    gate."""
+    gate and down."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.core.pipeline import MosaicPipeline
@@ -1698,10 +1825,11 @@ def phase_quant(main: dict, device, gpu: str) -> dict:
     for t in out["trace"]:
         log("trace", gpu=gpu, model="llama3-8b quant-smoke", **t)
     gen = torch.Generator(device=device).manual_seed(7)
-    w = art.params["blocks"][0]["mlp"]["gate"]
-    out["cases"] = [_quant_block_sparse_case(w, art.packed[(0, "gate")], 16,
-                                             dtype, gen, "layer0.gate")
-                    for dtype in (torch.float32, torch.bfloat16)]
+    mlp = art.params["blocks"][0]["mlp"]
+    out["cases"] = [_quant_block_sparse_case(
+        mlp[name], art.packed[(0, name)], M, dtype, gen, f"layer0.{name}")
+        for name in ("gate", "down") for M in (16, 128)
+        for dtype in (torch.float32, torch.bfloat16)]
     for c in out["cases"]:
         log("kernels", kernel="quant_block_sparse_matmul", **c)
     out["art"] = art

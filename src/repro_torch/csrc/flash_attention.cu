@@ -12,7 +12,10 @@
 // Layouts, all contiguous, in the model's own order so the wrapper makes
 // no copies: q, out (B, S, n_q, D); k, v (B, S, n_kv, D). S is a
 // multiple of the 64-row tile (the model passes multiples of 1024); D is
-// one of 16, 32, 64, 128.
+// one of 16, 32, 64, 128, 192, 256. The f32 shared tiles take
+// 4 * 64 * (3 D + 65 + 1) bytes: 213.5 KB at D 256, under the 227 KB a
+// block may hold; each thread's accumulator is 4 x D/16 floats (64 at D
+// 256).
 //
 // Each 64-row Q tile (pre-scaled by 1/sqrt(D)) and each 64-row K/V tile
 // are staged in shared memory (bf16 widened to f32). 256 threads: thread
@@ -205,6 +208,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     case 64: return launch_d<T, 64>(q, k, v, out, B, S, n_q, n_kv, scale, st);
     case 128:
       return launch_d<T, 128>(q, k, v, out, B, S, n_q, n_kv, scale, st);
+    case 192:
+      return launch_d<T, 192>(q, k, v, out, B, S, n_q, n_kv, scale, st);
+    case 256:
+      return launch_d<T, 256>(q, k, v, out, B, S, n_q, n_kv, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -215,7 +222,7 @@ extern "C" {
 
 // Each entry point launches on `stream` and returns the CUDA error of the
 // launch (0 on success). The caller checks shapes: S % 64 == 0, S >= 64,
-// n_q % n_kv == 0, B * n_q <= 65535, D in {16, 32, 64, 128}.
+// n_q % n_kv == 0, B * n_q <= 65535, D in {16, 32, 64, 128, 192, 256}.
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* out, int B, int S, int n_q, int n_kv, int D,
                         float scale, void* stream) {

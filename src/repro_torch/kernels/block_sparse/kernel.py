@@ -7,6 +7,7 @@ names) and ``::quant_block_sparse_matmul`` (kernel 5: the same walk over
 the plan's kept tiles stored as int8 with one pow2 scale each). The
 library is built with ``nvcc`` at first launch and bound with
 ``ctypes``; nothing is built or loaded when this module is imported.
+``tile_config`` states, without a card, the tile each launch takes.
 """
 from __future__ import annotations
 
@@ -25,6 +26,68 @@ _FN = {("dense", torch.float32): "block_sparse_matmul_f32",
        ("int8", torch.bfloat16): "quant_block_sparse_matmul_bf16"}
 _N_PTR = {"dense": 5, "int8": 7}
 _BOUND: dict = {}     # (weight, dtype) -> C function with its signature
+
+# The tile rule of csrc/block_sparse.cu (``choose`` and
+# block_sparse_pipe.cuh), mirrored: each warp owns one (M-tile x
+# col_width) output slice of one plan column and streams it through a
+# ring of ``stages`` 16-row K items. ``library_tile_config`` returns the
+# C side's choice; chip_smoke.py and the card's tests hold the two equal.
+K_ROWS = 16                    # K rows per ring item
+
+
+def tile_config(M: int, block: int, dtype: torch.dtype,
+                weight: str = "dense") -> dict:
+    """The tile kernel 1 (``weight="dense"``) or kernel 5 (``"int8"``)
+    launches for x (M, K) and a weight planned in ``block`` tiles:
+    16-row M-tiles at decode, 64-row ones from M = 64 (a column's weight
+    tiles are then read once per 64 rows, not per 16); 8-column warp
+    slices for f32 at 16 rows (twice the warps to share the FFMA issue
+    of a decode launch), 16-column ones otherwise; a deeper ring for
+    16-row tiles, whose items are small; 2 warps per thread block (4 for
+    bf16 at 16 rows); FFMA in f32, ``mma.sync`` in bf16. The block size
+    only sets how many slices a plan column has."""
+    if block not in BLOCKS or dtype not in DTYPES \
+            or weight not in _N_PTR:
+        raise ValueError(f"no tile for block {block}, {dtype}, {weight}")
+    int8 = weight == "int8"
+    bf16 = dtype == torch.bfloat16
+    m_tile = 64 if M >= 64 else 16
+    col_width = 8 if m_tile == 16 and not bf16 else 16
+    if m_tile == 16:
+        stages = 12 if int8 else 8
+    else:
+        stages = 6 if bf16 else 4
+    warps = 4 if bf16 and m_tile == 16 else 2
+    # shared-memory rows in elements: x row, weight row (padded)
+    size = 2 if bf16 else 4
+    x_row = K_ROWS + (8 if bf16 else 4)
+    w_row = 24 if bf16 else col_width
+    stage = m_tile * x_row * size + (
+        K_ROWS * 16 if int8 else K_ROWS * w_row * size)
+    warp_bytes = stages * stage
+    if int8:     # the dequantised tile and one scale per stage
+        warp_bytes += K_ROWS * w_row * size + -(-stages * 4 // 16) * 16
+    return {"m_tile": m_tile, "stages": stages, "warps": warps,
+            "mma": "mma.sync" if bf16 else "ffma",
+            "col_width": col_width, "slices": block // col_width,
+            "smem_bytes": warps * warp_bytes}
+
+
+def library_tile_config(M: int, block: int, dtype: torch.dtype,
+                        weight: str = "dense") -> dict:
+    """The C side's choice (builds the library): the keys of
+    ``tile_config`` that the launch decides."""
+    fn = _BOUND.get("config")
+    if fn is None:
+        fn = build.load(SOURCE).block_sparse_tile_config
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _BOUND["config"] = fn
+    out = (ctypes.c_int * 5)()
+    fn(M, int(dtype == torch.bfloat16), int(weight == "int8"),
+       ctypes.addressof(out))
+    return {"m_tile": out[0], "stages": out[1], "warps": out[2],
+            "mma": ("ffma", "mma.sync")[out[3]], "smem_bytes": out[4]}
 
 
 def _function(weight: str, dtype: torch.dtype):
@@ -68,6 +131,15 @@ def _check(x, counts, indices, block: int, N: int) -> None:
         raise ValueError("x must be contiguous")
 
 
+def _check_aligned(**tensors) -> None:
+    """The kernels copy 16-byte chunks: every operand starts on 16."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes (a view at "
+                             f"an offset of {t.storage_offset()} elements "
+                             f"does not)")
+
+
 def _check_dense(x, w) -> None:
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, x on {x.device}")
@@ -89,6 +161,7 @@ def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor,
     (M, N) in x's dtype. Raises on anything the kernel does not take."""
     _check_dense(x, w)
     _check(x, counts, indices, block, w.shape[1])
+    _check_aligned(x=x, w=w)
     M, K = x.shape
     N = w.shape[1]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
@@ -141,6 +214,7 @@ def quant_block_sparse_matmul(x: torch.Tensor, tiles: torch.Tensor,
     N = counts.shape[0] * block
     _check(x, counts, indices, block, N)
     check_int8_storage(tiles, slots, scales, indices, block)
+    _check_aligned(x=x, tiles=tiles)
     M, K = x.shape
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:

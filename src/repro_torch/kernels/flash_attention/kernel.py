@@ -21,7 +21,7 @@ from repro_torch.kernels import build, counters
 
 SOURCE = "flash_attention.cu"
 TILE = 64                          # query and kv rows per tile
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 _FN = {torch.float32: "flash_attention_f32",
        torch.bfloat16: "flash_attention_bf16"}
 _BOUND: dict = {}     # dtype -> C function with its signature set

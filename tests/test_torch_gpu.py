@@ -64,7 +64,7 @@ def _plan_case(block: int, seed: int, M=None):
 
 @pytest.mark.parametrize("block", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M", [1, 16, 37])
+@pytest.mark.parametrize("M", [1, 16, 37, 64, 130])
 def test_block_sparse_kernel_matches_plain(cuda, block, dtype, M):
     x, w, bm = _plan_case(block, 10, M)
     counts, indices = bs_ops.plan_blocks(bm)
@@ -100,10 +100,53 @@ def test_block_sparse_kernel_raises_on_what_it_does_not_take(cuda):
         (xt, wt.T.contiguous().T, counts, indices, 16),     # layout
         (xt, wt, counts[:-1], indices, 16),                 # plan shape
         (xt, wt.cpu(), counts, indices, 16),                # device
+        (torch.zeros(xt.numel() + 1, device=cuda)[1:].view(xt.shape),
+         wt, counts, indices, 16),                          # 16-byte start
     ]
     for args in bad:
         with pytest.raises(ValueError):
             bs_kernel.block_sparse_matmul(*args)
+
+
+@pytest.mark.parametrize("M", [1, 16, 63, 64, 128, 3072])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weight", ["dense", "int8"])
+def test_block_sparse_tile_config_mirrors_the_library(cuda, M, dtype,
+                                                      weight):
+    for block in bs_kernel.BLOCKS:
+        want = bs_kernel.tile_config(M, block, dtype, weight)
+        got = bs_kernel.library_tile_config(M, block, dtype, weight)
+        assert got == {k: want[k] for k in got}, (block, got, want)
+
+
+@pytest.mark.parametrize("block", [16, 128])
+@pytest.mark.parametrize("M", [16, 130])
+def test_block_sparse_kernel_f32_bitwise_to_grouped_one_expert(cuda, block,
+                                                               M):
+    """f32 kernel 1 keeps the fmaf order of the tile routine that kernel 6
+    still runs (live K-blocks in plan order, k ascending): one expert of
+    kernel 6 over the same plan gives the same bits, also where kernel 1
+    takes 64-row M-tiles (M 130) and kernel 6 16-row ones."""
+    rng = np.random.default_rng(14)
+    K, N = 6 * block, 5 * block
+    bm = rng.random((K // block, N // block)) < 0.6
+    bm[:, 0] = False
+    bm[:, 1] = True
+    w = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    w *= np.repeat(np.repeat(bm, block, 0), block, 1)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    counts, indices = (torch.from_numpy(a).to(cuda)
+                       for a in bs_ops.plan_blocks(bm))
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    y1 = bs_kernel.block_sparse_matmul(xt, wt, counts, indices, block)
+    Mp = -(-M // 16) * 16                  # kernel 6 takes M % block_m == 0
+    xp = torch.nn.functional.pad(xt, (0, 0, 0, Mp - M))
+    work = torch.ones((1, Mp // 16), dtype=torch.int32, device=cuda)
+    y6 = gbs_kernel.grouped_block_sparse_matmul(
+        xp[None].contiguous(), wt[None].contiguous(), counts[None].contiguous(),
+        indices[None].contiguous(), work, block, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y6[0, :M])
 
 
 def test_sparse_linear_pads_rows_to_the_block(cuda):
@@ -228,7 +271,7 @@ def test_flash_attention_kernel_matches_plain(cuda, S, group, dtype):
     _attn_close(out, fa_ref.flash_attention_ref(q, k, v), dtype)
 
 
-@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("D", [16, 32, 64, 192, 256])
 def test_flash_attention_kernel_head_widths(cuda, D):
     rng = np.random.default_rng(50 + D)
     q, k, v = (torch.from_numpy(rng.standard_normal(
@@ -352,11 +395,16 @@ def test_ragged_kernel_matches_plain(cuda, block, dtype):
     _close(y, plain, dtype)
     assert not y[96:].any(), "dead tiles are zeros"
     assert not y[48:64].any(), "the empty expert gives zeros"
-    # a tile's rows equal kernel 1 on its expert alone, bitwise
+    # a tile's rows equal kernel 1 on its expert alone: bitwise in f32
+    # (one fmaf order); in bf16 kernel 1 runs on the tensor cores and
+    # kernel 7 widens onto the FFMA units, so the sums differ in order
     solo = bs_kernel.block_sparse_matmul(
         xt[:32].contiguous(), wt[1].contiguous(), args[0][1].contiguous(),
         args[1][1].contiguous(), block)
-    assert torch.equal(y[:32], solo)
+    if dtype == torch.float32:
+        assert torch.equal(y[:32], solo)
+    else:
+        _close(y[:32], solo, dtype)
 
 
 def _moe_layer(cuda, E=8, top_k=2, d=64, d_ff=64, block=16, seed=70):
@@ -403,6 +451,30 @@ def test_moe_paths_bitwise_equal_on_the_card(cuda):
     assert torch.equal(out["ragged"], out["loop"])
     dense, _ = moe.apply_moe(params, spec, x)
     _close(out["ragged"], dense, torch.float32)
+
+
+def test_moe_loop_path_agrees_with_ragged_in_bf16(cuda):
+    """bf16: the per-expert loop (kernel 1, tensor cores) and the ragged
+    path (kernel 7, bf16 widened onto FFMA) sum each row in another order,
+    so their rows are no longer bitwise equal; each rounds an f32 sum to
+    bf16 once, so they agree within one bf16 ulp of the largest row."""
+    spec, params, packed = _moe_layer(cuda, seed=77)
+    bp = {"moe": {k: v.bfloat16() for k, v in params.items()}}
+    x = torch.from_numpy(np.random.default_rng(78).standard_normal(
+        (4, 1, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
+    counters.reset()
+    loop = serve_sparse.sparse_apply_moe(bp, spec, x, packed, 0,
+                                         ragged_moe=False,
+                                         group_experts=False)
+    ragged = serve_sparse.sparse_apply_moe(bp, spec, x, packed, 0,
+                                           ragged_moe=True)
+    torch.cuda.synchronize()
+    launches = counters.snapshot()
+    assert launches["block_sparse"] == 3 * spec.n_experts
+    assert launches["grouped_block_sparse_ragged"] == 3
+    assert loop.dtype == ragged.dtype == torch.bfloat16
+    err = (loop.float() - ragged.float()).abs().max().item()
+    assert err <= 2 ** -7 * max(1.0, ragged.float().abs().max().item())
 
 
 def test_ragged_switches_to_grouped_above_64_tokens(cuda):

@@ -118,6 +118,31 @@ def test_block_sparse_kernel_rejects_cpu_tensors():
                                       16)
 
 
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("M", [1, 16, 64, 128, 3072])
+def test_block_sparse_tile_config(block, M):
+    """The tile rule of kernels 1 and 5, readable without a card: 16-row
+    M-tiles at decode, 64-row ones from M = 64; 8-column warp slices for
+    f32 at 16 rows, 16-column ones otherwise; FFMA in f32, mma.sync in
+    bf16; the ring and its thread block within the H100's 227 KB of
+    shared memory."""
+    for dtype in bs_kernel.DTYPES:
+        bf16 = dtype == torch.bfloat16
+        for weight in ("dense", "int8"):
+            c = bs_kernel.tile_config(M, block, dtype, weight)
+            assert c["m_tile"] == (16 if M < 64 else 64)
+            width = 8 if M < 64 and not bf16 else 16
+            assert c["col_width"] == width
+            assert c["slices"] == block // width
+            assert c["mma"] == ("mma.sync" if bf16 else "ffma")
+            deep = 12 if weight == "int8" else 8
+            assert c["stages"] == (deep if M < 64 else 6 if bf16 else 4)
+            assert c["warps"] == (4 if bf16 and M < 64 else 2)
+            assert 0 < c["smem_bytes"] <= 227 * 1024
+    with pytest.raises(ValueError):
+        bs_kernel.tile_config(16, 48, torch.float32)
+
+
 def _wanda_case(K, N, seed):
     rng = np.random.default_rng(seed)
     w = rng.standard_normal((K, N)).astype(np.float32)
