@@ -36,7 +36,11 @@ Phases, each printing one line of its own:
                 shapes of the paths above, with times, bounds and a
                 library yardstick; kernel 1 also at a 512-row prefill,
                 and in f32 held bitwise to kernel 6 with one expert
-                (the fmaf order kernels 6-9 keep);
+                (the fmaf order kernels 6-9 keep); kernel 3 also at the
+                paged trace's 8 rows of 256, the longest row alone and
+                gemma-2b's and nemotron-4-340b's heads, each case run
+                again with a twin of its longest row that must give that
+                row's bits (and every other row the first run's);
 7. moe        — qwen3-moe-30b-a3b at full width (depth cut to 4 layers,
                 random weights from seed 0), after the llama3-8b phases'
                 tensors are freed: ``MosaicPipeline`` on
@@ -154,6 +158,25 @@ FIRST_DESIGN_QUANT_MS = {
     ("layer0.gate", 16, 16, "float32"): 0.2026,
     ("layer0.gate", 16, 16, "bfloat16"): 0.2016,
 }
+# Kernel 3 of the first design (one thread block per (row, kv head)
+# walking the whole row, scalar loads, one thread a head's softmax), ms at
+# each case of phase_attention_kernels: this script's
+# _paged_attention_case driving commit 3eda3e2's package, the first of
+# its two runs in one call (parent, change, change, parent; the other
+# within 0.7%), on an NVIDIA H100 80GB HBM3 at 700.00 W. Keys (case,
+# dtype).
+FIRST_DESIGN_PAGED_MS = {
+    ("continuous", "float32"): 1.5531,
+    ("continuous", "bfloat16"): 1.5576,
+    ("paged-trace", "float32"): 0.1377,
+    ("paged-trace", "bfloat16"): 0.1360,
+    ("long-alone", "float32"): 1.5467,
+    ("long-alone", "bfloat16"): 1.5502,
+    ("gemma-2b", "float32"): 4.0096,
+    ("gemma-2b", "bfloat16"): 3.9988,
+    ("nemotron-4-340b", "float32"): 5.1753,
+    ("nemotron-4-340b", "bfloat16"): 5.1702,
+}
 PREFILL_ROWS = 512                 # 4 x 128 tokens, the continuous chunk
 # kernel 4 at head dims 192 and 256: (model, n_q, n_kv, head_dim) of the
 # JAX package's gemma-2b and nemotron-4-340b configurations
@@ -241,6 +264,23 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def host_us(fn, iters: int = 50) -> float:
+    """Median host time of one call of ``fn`` (its checks, allocations
+    and launches), each call made on an idle card so no launch waits for
+    a full queue. ``time_ms`` times the card; when a call's host time
+    outlasts the L2 flush before it, part of it shows there too."""
+    import torch
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return sorted(times)[iters // 2]
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype: str) -> tuple:
@@ -1118,9 +1158,12 @@ def _sdpa(q, k, v, **kw):
     return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
 
 
-def _paged_attention_case(spec, lengths: list, dtype, gen, device) -> dict:
-    """Decode attention for B = len(lengths) rows of the pruned model's
-    heads, K/V in a shuffled arena of BLOCK_SIZE blocks."""
+def _paged_attention_case(spec, lengths: list, dtype, gen, device,
+                          label: str = "continuous") -> dict:
+    """Decode attention for B = len(lengths) rows of ``spec``'s heads, K/V
+    in a shuffled arena of BLOCK_SIZE blocks. A second launch with one
+    more row, the longest row's twin (its table, query and length), must
+    give that row's bits, and every other row the first launch's."""
     import torch
     from repro_torch.kernels.paged_attention import kernel, ref
     from repro_torch.models.layers import paged_gather
@@ -1138,9 +1181,17 @@ def _paged_attention_case(spec, lengths: list, dtype, gen, device) -> dict:
     lens = torch.tensor(lengths, dtype=torch.int32, device=device)
     out = kernel.paged_attention(q, k, v, tables, lens)
     plain = ref.paged_attention_ref(q, k, v, tables, lens)
+    long = max(range(B), key=lambda b: lengths[b])
+    twin = kernel.paged_attention(
+        torch.cat([q, q[long:long + 1]]), k, v,
+        torch.cat([tables, tables[long:long + 1]]),
+        torch.cat([lens, lens[long:long + 1]]))
     torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
-    err, tol = _check_close("paged_attention", out, plain, dname)
+    err, tol = _check_close(f"paged_attention {label}", out, plain, dname)
+    if not (torch.equal(twin[B], twin[long]) and torch.equal(twin[:B], out)):
+        raise AssertionError(f"paged_attention {label} {dname}: the twin "
+                             f"of row {long} or the batch's rows differ")
     kview = paged_gather(k, tables).transpose(1, 2)
     vview = paged_gather(v, tables).transpose(1, 2)
     mask = (torch.arange(kview.shape[2], device=device)[None, :]
@@ -1151,10 +1202,14 @@ def _paged_attention_case(spec, lengths: list, dtype, gen, device) -> dict:
     n_bytes = (2 * live * n_kv * D + 2 * B * n_q * D) * s \
         + 4 * (tables.numel() + B)
     b_ms, b_by = bound_ms(n_bytes, 4.0 * live * n_q * D, dname)
-    return {
-        "B": B, "n_q": n_q, "n_kv": n_kv, "D": D, "block": bs,
-        "lengths": lengths, "dtype": dname, "max_abs_err": err, "tol": tol,
+    rec = {
+        "case": label, "B": B, "n_q": n_q, "n_kv": n_kv, "D": D,
+        "block": bs, "lengths": lengths, "dtype": dname,
+        "max_abs_err": err, "tol": tol,
         "ms": time_ms(lambda: kernel.paged_attention(q, k, v, tables, lens)),
+        "host_us": host_us(lambda: kernel.paged_attention(q, k, v, tables,
+                                                          lens)),
+        "ms_first_design": FIRST_DESIGN_PAGED_MS.get((label, dname)),
         "plain_ms": time_ms(lambda: ref.paged_attention_ref(
             q, k, v, tables, lens)),
         "library_ms": time_ms(lambda: _sdpa(q4, kview, vview,
@@ -1163,6 +1218,8 @@ def _paged_attention_case(spec, lengths: list, dtype, gen, device) -> dict:
                    "view (gather not timed)",
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    _rates(rec, n_bytes, 4.0 * live * n_q * D)
+    return rec
 
 
 def _flash_attention_case(spec, S: int, dtype, gen, device) -> dict:
@@ -1195,8 +1252,25 @@ def _flash_attention_case(spec, S: int, dtype, gen, device) -> dict:
     }
 
 
+def paged_cases(spec, lengths: list, device) -> list:
+    """Kernel 3 in f32 and bf16 at the paged trace's MAX_SLOTS rows of
+    PAGED_TRACE_PROMPT tokens and the longest of ``lengths`` alone
+    (``spec``'s heads), and at the WIDE_HEADS models' heads at
+    ``lengths``."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(3)
+    cases = [("paged-trace", spec, [PAGED_TRACE_PROMPT] * MAX_SLOTS),
+             ("long-alone", spec, [max(lengths)])]
+    cases += [(model, SimpleNamespace(n_q=n_q, n_kv=n_kv, head_dim=D),
+               lengths) for model, n_q, n_kv, D in WIDE_HEADS]
+    return [_paged_attention_case(heads, lens, dtype, gen, device, label)
+            for label, heads, lens in cases
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
 def phase_attention_kernels(main: dict, cont: dict, device) -> tuple:
     import torch
+    t0 = time.perf_counter()
     spec = main["art"].cfg.layer(0).mixer
     gen = torch.Generator(device=device).manual_seed(2)
     pa, fa = [], []
@@ -1211,11 +1285,12 @@ def phase_attention_kernels(main: dict, cont: dict, device) -> tuple:
             fa.append({"model": model, **_flash_attention_case(
                 SimpleNamespace(n_q=n_q, n_kv=n_kv, head_dim=D),
                 LONG_PROMPT, dtype, gen, device)})
+    pa += paged_cases(spec, cont["decode_lengths"], device)
     for c in pa:
         log("kernels", kernel="paged_attention", **c)
     for c in fa:
         log("kernels", kernel="flash_attention", **c)
-    return pa, fa
+    return pa, fa, time.perf_counter() - t0
 
 
 # ------------------------------------------------------------ MoE phase
@@ -2515,8 +2590,8 @@ def main() -> int:
     cont_info = phase_continuous(main_info, device)
     trace = phase_trace(main_info, device)
     bs_cases, wm_cases = phase_kernels(main_info, device)
-    pa_cases, fa_cases = phase_attention_kernels(main_info, cont_info,
-                                                 device)
+    pa_cases, fa_cases, attention_s = phase_attention_kernels(
+        main_info, cont_info, device)
     quant_info = phase_quant(main_info, device, gpu)
     del main_info["art"], quant_info["art"]   # free the llama3-8b models
     torch.cuda.empty_cache()
@@ -2541,7 +2616,7 @@ def main() -> int:
     hybrid_info = phase_hybrid(device, gpu)
     hybrid_info["phase_s"] = time.perf_counter() - t_hybrid
     log("phases", ssm_s=ssm_info["phase_s"],
-        hybrid_s=hybrid_info["phase_s"],
+        hybrid_s=hybrid_info["phase_s"], attention_kernels_s=attention_s,
         before_ssm_s=t_ssm - t_start)
     table = kernel_table(main_info, cont_info, moe_info, quant_info,
                          moe_quant_info, ssm_info, {

@@ -248,10 +248,117 @@ def test_paged_attention_kernel_raises_on_what_it_does_not_take(cuda):
         (q.transpose(0, 1).contiguous().transpose(0, 1), k, v, tables,
          lengths),                                          # layout
         (q, k, v, tables.cpu(), lengths),                   # mixed devices
+        (torch.cat([q] * 6, 1)[:, :34].contiguous(), k, v, tables,
+         lengths),                                          # group 17
+        (q[..., :126].contiguous(), k[..., :126].contiguous(),
+         v[..., :126].contiguous(), tables, lengths),       # D % 4
+        (q, torch.empty(k.numel() + 1, device=cuda)[1:].view(k.shape), v,
+         tables, lengths),                                  # alignment
     ]
     for args in bad:
         with pytest.raises(ValueError):
             pa_kernel.paged_attention(*args)
+
+
+def _edge_lengths(block: int, n_parts: int) -> tuple:
+    """Lengths on the partition edges of a table ``n_parts`` partitions
+    wide (the last one short by a block): 1, P - 1, P, P + 1, 2P + 1 and
+    the full table; and that table width."""
+    P = pa_kernel.partition_blocks(block) * block
+    max_blocks = n_parts * pa_kernel.partition_blocks(block) - 1
+    full = max_blocks * block
+    return [min(n, full) for n in (1, P - 1, P, P + 1, 2 * P + 1, full)], \
+        max_blocks
+
+
+def _paged_rows(lengths, group, block, max_blocks, seed, n_kv=2, D=128):
+    """q, a shuffled arena with a scratch block, tables, lengths."""
+    rng = np.random.default_rng(seed)
+    B = len(lengths)
+    n_blocks = B * max_blocks
+    q = rng.standard_normal((B, n_kv * group, D)).astype(np.float32)
+    k, v = (rng.standard_normal((n_blocks + 1, block, n_kv, D)).astype(
+        np.float32) for _ in range(2))
+    tables = rng.permutation(n_blocks).reshape(B, max_blocks).astype(
+        np.int32)
+    return q, k, v, tables, np.asarray(lengths, np.int32)
+
+
+@pytest.mark.parametrize("group", [1, 3, 8])
+@pytest.mark.parametrize("block", [8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_partition_edges(cuda, group, block, dtype):
+    """Lengths at the partition edges of a table four partitions wide,
+    a length-0 row and the full row's twin: within tolerance of the plain
+    version, zeros, and the twin bitwise equal."""
+    lengths, max_blocks = _edge_lengths(block, 4)
+    lengths += [0, lengths[-1]]
+    q, k, v, tables, lens = (torch.from_numpy(a).to(cuda) for a in
+                             _paged_rows(lengths, group, block, max_blocks,
+                                         50 + block))
+    tables[-1] = tables[-3]
+    q[-1] = q[-3]
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    counters.reset()
+    out = pa_kernel.paged_attention(q, k, v, tables, lens)
+    torch.cuda.synchronize()
+    assert counters.snapshot() == {"paged_attention": 1}
+    assert torch.isfinite(out.float()).all()
+    assert not out[-2].any(), "a length-0 row gives zeros"
+    assert torch.equal(out[-1], out[-3]), "the twin row is bitwise equal"
+    plain = pa_ref.paged_attention_ref(q, k, v, tables, lens)
+    live = lens > 0
+    _attn_close(out[live], plain[live], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_batch_invariant(cuda, dtype):
+    """A row gives the same bits alone as inside a batch of 8: its sum
+    order depends on its own inputs alone."""
+    lengths = [3115, 17, 300, 129, 0, 1, 2048, 640]
+    q, k, v, tables, lens = (torch.from_numpy(a).to(cuda) for a in
+                             _paged_rows(lengths, 3, 16, 224, 60,
+                                         n_kv=8))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    batch = pa_kernel.paged_attention(q, k, v, tables, lens)
+    for b in (0, 3, 6):
+        alone = pa_kernel.paged_attention(q[b:b + 1].contiguous(), k, v,
+                                          tables[b:b + 1].contiguous(),
+                                          lens[b:b + 1].contiguous())
+        assert torch.equal(alone[0], batch[b]), f"row {b}"
+    torch.cuda.synchronize()
+    assert not batch[4].any(), "a length-0 row gives zeros"
+    plain = pa_ref.paged_attention_ref(q, k, v, tables, lens)
+    live = lens > 0
+    _attn_close(batch[live], plain[live], dtype)
+
+
+@pytest.mark.parametrize("group,n_kv,D", [(8, 1, 256), (12, 8, 192),
+                                          (3, 2, 64), (3, 2, 68),
+                                          (3, 2, 132)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_wide_heads(cuda, group, n_kv, D, dtype):
+    """gemma-2b's heads (8 q / 1 kv, D 256) and nemotron-4-340b's (96 q
+    / 8 kv, D 192), and widths no served model reaches: lanes past D at
+    D 64 and 68, bf16 rows of 8k + 8 bytes (D 68 and 132, the 8-byte
+    copies); over a table several partitions wide, with a length-0 row
+    and the full row's twin."""
+    lengths, max_blocks = _edge_lengths(16, 3)
+    lengths += [0, lengths[-1]]
+    q, k, v, tables, lens = (torch.from_numpy(a).to(cuda) for a in
+                             _paged_rows(lengths, group, 16, max_blocks,
+                                         70 + D, n_kv=n_kv, D=D))
+    tables[-1] = tables[-3]
+    q[-1] = q[-3]
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    out = pa_kernel.paged_attention(q, k, v, tables, lens)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    assert not out[-2].any(), "a length-0 row gives zeros"
+    assert torch.equal(out[-1], out[-3]), "the twin row is bitwise equal"
+    plain = pa_ref.paged_attention_ref(q, k, v, tables, lens)
+    live = lens > 0
+    _attn_close(out[live], plain[live], dtype)
 
 
 @pytest.mark.parametrize("S", [1024, 3072])

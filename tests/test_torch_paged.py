@@ -9,7 +9,10 @@ package, and the attention kernels' plain versions.
 - Paged decode attention: the port's plain version is held to JAX's
   ``paged_attention_ref`` and to the Pallas kernel in interpret mode,
   including a row masked to the scratch block and rows reading shared
-  blocks.
+  blocks. The CUDA kernel's partition rule (``kernel.partition_blocks``)
+  and its partition-and-merge arithmetic
+  (``ref.paged_attention_partitioned_ref``) are held to the same JAX
+  functions at lengths on the partition edges.
 - Causal attention: the port's flash plain version and its
   ``_chunked_causal_attention`` are held to the Pallas flash kernel in
   interpret mode at S = 512, and to the chunked path at S = 3072, which
@@ -45,7 +48,9 @@ from repro_torch.common.interop import params_from_numpy
 from repro_torch.kernels import counters
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention import ref as pa_ref
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.specs import config_from_dict
@@ -292,6 +297,81 @@ def test_paged_attention_plain_matches_jax(hq, hkv, bs):
                                rtol=0)
     np.testing.assert_allclose(got.numpy(), want_kernel, atol=ATOL, rtol=0)
     np.testing.assert_array_equal(got[3].numpy(), got[0].numpy())
+
+
+@pytest.mark.parametrize("bs", [1, 4, 8, 16, 24, 48, 64, 100, 128, 256])
+def test_paged_partition_rule(bs):
+    """Whole blocks, about PART_POSITIONS positions, from the block size
+    alone; the partitions of a table cover it once."""
+    pb = pa_kernel.partition_blocks(bs)
+    P = pb * bs
+    assert pb >= 1
+    assert P <= max(pa_kernel.PART_POSITIONS, bs)
+    assert P > pa_kernel.PART_POSITIONS - bs
+    for max_blocks in (1, pb - 1, pb, pb + 1, 7 * pb + 3):
+        if max_blocks < 1:
+            continue
+        n = pa_kernel.n_partitions(max_blocks, bs)
+        assert (n - 1) * pb < max_blocks <= n * pb
+    # the ring, scores, m, l and arena rows the kernel lays out
+    assert pa_kernel.smem_bytes(3, 128, bs) == (
+        4 * 64 * 128 + 4 * (3 * (128 + P + 1) + 6) + 4 * P)
+    if bs <= 64:      # the widest heads the kernel takes fit a block
+        assert pa_kernel.smem_bytes(pa_kernel.MAX_GROUP,
+                                    pa_kernel.MAX_HEAD_DIM, bs) \
+            <= pa_kernel.SMEM_LIMIT
+
+
+def _edge_case(hq, hkv, bs, part_blocks, n_parts, seed, D=16):
+    """Rows at the partition edges of a table ``n_parts`` partitions
+    wide: lengths 1, P - 1, P, P + 1, 2P + 1 and the full table, a
+    length-0 row, and a row reading row 4's blocks with row 4's query and
+    length."""
+    rng = np.random.default_rng(seed)
+    P = part_blocks * bs
+    M_ = n_parts * part_blocks - 1          # the last partition is short
+    lengths = np.array([1, P - 1, P, P + 1, 2 * P + 1, M_ * bs, 0, 0],
+                       np.int32)
+    lengths = np.clip(lengths, 0, M_ * bs)
+    B = len(lengths)
+    nb = B * M_
+    ka = rng.standard_normal((nb + 1, bs, hkv, D)).astype(np.float32)
+    va = rng.standard_normal((nb + 1, bs, hkv, D)).astype(np.float32)
+    tables = rng.permutation(nb).reshape(B, M_).astype(np.int32)
+    q = rng.standard_normal((B, 1, hq, D)).astype(np.float32)
+    tables[7], lengths[7], q[7] = tables[4], lengths[4], q[4]
+    return q, ka, va, tables, lengths
+
+
+@pytest.mark.parametrize("hq,hkv,bs,part_blocks,n_parts",
+                         [(6, 2, 4, 2, 4), (4, 2, 8, 1, 5), (8, 1, 2, 3, 3),
+                          (3, 3, 16, None, 3)])
+def test_paged_partitioned_plain_matches_jax(hq, hkv, bs, part_blocks,
+                                             n_parts):
+    """The kernel's partition-and-merge arithmetic against the Pallas
+    kernel in interpret mode and JAX's reference (None: the launcher's
+    own partition of 128 positions)."""
+    part_blocks = part_blocks or pa_kernel.partition_blocks(bs)
+    case = _edge_case(hq, hkv, bs, part_blocks, n_parts, seed=hq + bs)
+    q, ka, va, tables, lengths = case
+    want_kernel = _np(jax_paged_decode(*(jnp.asarray(a) for a in case),
+                                       interpret=True))[:, 0]
+    want_ref = _np(jax_paged_ref(*(jnp.asarray(a) for a in
+                                   (q[:, 0], ka, va, tables, lengths))))
+    got = pa_ref.paged_attention_partitioned_ref(
+        *(torch.from_numpy(a) for a in (q[:, 0], ka, va, tables, lengths)),
+        part_blocks)
+    assert got.shape == q[:, 0].shape and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want_kernel, atol=ATOL, rtol=0)
+    live = lengths > 0          # JAX's reference averages a length-0 row
+    np.testing.assert_allclose(got.numpy()[live], want_ref[live], atol=ATOL,
+                               rtol=0)
+    assert not got[lengths == 0].any(), "a length-0 row gives zeros"
+    np.testing.assert_array_equal(got[7].numpy(), got[4].numpy())
+    plain = pa_ops.paged_attention_decode(*(torch.from_numpy(a)
+                                            for a in case))[:, 0]
+    np.testing.assert_allclose(got.numpy()[live], plain.numpy()[live],
+                               atol=ATOL, rtol=0)
 
 
 # ------------------------------------------------------ causal attention
