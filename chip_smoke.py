@@ -41,6 +41,15 @@ Phases, each printing one line of its own:
                 gemma-2b's and nemotron-4-340b's heads, each case run
                 again with a twin of its longest row that must give that
                 row's bits (and every other row the first run's);
+                kernel 4 at S 3072 at the pruned llama's, gemma-2b's and
+                nemotron-4-340b's heads, with its host time a call and
+                its first design's time; both attention kernels also in
+                the Frobenius norm of the error;
+   bf16 prefill — one 3072-token prompt, batch 1, through the static
+                ``Engine`` in bf16 (compute and cache) on the pruned
+                llama3-8b: one kernel-4 launch a layer, finite logits,
+                the prefill's wall time and kernel 4's share of its
+                device time (``torch.profiler``);
 7. moe        — qwen3-moe-30b-a3b at full width (depth cut to 4 layers,
                 random weights from seed 0), after the llama3-8b phases'
                 tensors are freed: ``MosaicPipeline`` on
@@ -176,6 +185,18 @@ FIRST_DESIGN_PAGED_MS = {
     ("gemma-2b", "bfloat16"): 3.9988,
     ("nemotron-4-340b", "float32"): 5.1753,
     ("nemotron-4-340b", "bfloat16"): 5.1702,
+}
+# Kernel 4 of the first design (one 64-row tile a block, FFMA in both
+# types, bf16 widened to f32 in shared memory), ms at S 3072 after the
+# 256 MB flush: this script's proof run at commit 9dc64f3 on an NVIDIA
+# H100 80GB HBM3 at 700.00 W. Keys (heads, dtype).
+FIRST_DESIGN_FLASH_MS = {
+    ("llama3-8b", "float32"): 2.4228,
+    ("llama3-8b", "bfloat16"): 2.4414,
+    ("gemma-2b", "float32"): 2.4211,
+    ("gemma-2b", "bfloat16"): 2.4102,
+    ("nemotron-4-340b", "float32"): 15.2057,
+    ("nemotron-4-340b", "bfloat16"): 15.3069,
 }
 PREFILL_ROWS = 512                 # 4 x 128 tokens, the continuous chunk
 # kernel 4 at head dims 192 and 256: (model, n_q, n_kv, head_dim) of the
@@ -319,6 +340,7 @@ def phase_build(device) -> dict:
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.block_sparse import kernel as bs_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.wanda_metric import kernel as wm_kernel
     sources = build.SOURCES
@@ -379,8 +401,58 @@ def phase_build(device) -> dict:
         if m:
             key = f"{m.group(1)}<{m.group(2) or ''},{m.group(3) or ''}>"
             out["kernel10_registers"][key] = n
+    out.update(flash_build_record(
+        built[sources.index(fa_kernel.SOURCE)][1:3]))
     log("build", **out)
     return out
+
+
+def flash_build_record(built: tuple) -> dict:
+    """Kernel 4's instantiations: registers and spill bytes (``ptxas
+    -v``), the wgmma serialisations ptxas reports, and the tensor-core
+    instructions of each bf16 instantiation (``cuobjdump -sass``). Raises
+    if a bf16 instantiation spills or issues no HGMMA."""
+    path, report = built
+    regs, spills = ptxas_registers(report), ptxas_spills(report)
+
+    def key(name: str):
+        m = re.search(r"\d(flash_attention_kernel)If(Li(\d+))", name)
+        if m:
+            return f"f32<D {m.group(3)}>"
+        m = re.search(r"flash_bf16_kernelILi(\d+)E", name)
+        if m:
+            return f"bf16<D {m.group(1)}>"
+        return None
+
+    # registers and spills only when this run compiled the library
+    kernels = {key(n): {"registers": r, "spill_bytes": spills.get(n, 0)}
+               for n, r in regs.items() if key(n)}
+    serialized = sorted({key(ln.split("'")[1]) for ln in report.splitlines()
+                         if "wgmma.mma_async instructions are serialized"
+                         in ln and "'" in ln} - {None})
+    from repro_torch.kernels import build
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    fn = None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = key(ln.split("Function :")[1].strip())
+            if fn is not None:
+                kernels.setdefault(fn, {}).update(hgmma=0)
+        elif fn in kernels:
+            kernels[fn]["hgmma"] += "HGMMA" in ln
+    for name, k in kernels.items():
+        if not name.startswith("bf16"):
+            continue
+        if k.get("spill_bytes") or not k.get("hgmma"):
+            raise AssertionError(f"kernel 4 {name}: {k} (spills, or no "
+                                 f"HGMMA in its SASS)")
+    if len(kernels) != 12:
+        raise AssertionError(f"kernel 4 instantiations: {sorted(kernels)}")
+    return {"flash_attention_kernels": kernels,
+            "flash_wgmma_serialized": serialized}
 
 
 def ptxas_registers(report: str) -> dict:
@@ -822,6 +894,8 @@ def kernel_class(name: str) -> str:
     for k in ("block_sparse", "paged_attention", "flash_attention"):
         if k in n:
             return k
+    if "flash_bf16" in n:
+        return "flash_attention"
     if any(m in n for m in GEMM_MARKS):
         return "gemm"
     if "softmax" in n:
@@ -996,6 +1070,20 @@ def _check_close(name: str, got, plain, dtype: str) -> tuple:
     if not err <= tol:
         raise AssertionError(f"{name} {dtype}: err {err} > {tol}")
     return err, tol
+
+
+def _check_rel(name: str, got, plain, dtype: str) -> float:
+    """||got - plain||_F / ||plain||_F within KERNEL_RTOL[dtype]. An
+    attention output's largest values sit in its first rows, so the
+    max-abs limit of ``_check_close`` can be as large as a typical value
+    of the bulk; this limit holds the bulk to the rounding of its own
+    scale."""
+    diff = float((got.float() - plain.float()).norm())
+    rel = diff / max(float(plain.float().norm()), 1e-30)
+    if not rel <= KERNEL_RTOL[dtype]:
+        raise AssertionError(f"{name} {dtype}: relative error {rel} > "
+                             f"{KERNEL_RTOL[dtype]}")
+    return rel
 
 
 def _tile_record(M: int, block: int, dtype, weight: str) -> dict:
@@ -1189,6 +1277,7 @@ def _paged_attention_case(spec, lengths: list, dtype, gen, device,
     torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
     err, tol = _check_close(f"paged_attention {label}", out, plain, dname)
+    rel = _check_rel(f"paged_attention {label}", out, plain, dname)
     if not (torch.equal(twin[B], twin[long]) and torch.equal(twin[:B], out)):
         raise AssertionError(f"paged_attention {label} {dname}: the twin "
                              f"of row {long} or the batch's rows differ")
@@ -1205,7 +1294,7 @@ def _paged_attention_case(spec, lengths: list, dtype, gen, device,
     rec = {
         "case": label, "B": B, "n_q": n_q, "n_kv": n_kv, "D": D,
         "block": bs, "lengths": lengths, "dtype": dname,
-        "max_abs_err": err, "tol": tol,
+        "max_abs_err": err, "tol": tol, "rel_err": rel,
         "ms": time_ms(lambda: kernel.paged_attention(q, k, v, tables, lens)),
         "host_us": host_us(lambda: kernel.paged_attention(q, k, v, tables,
                                                           lens)),
@@ -1222,8 +1311,10 @@ def _paged_attention_case(spec, lengths: list, dtype, gen, device,
     return rec
 
 
-def _flash_attention_case(spec, S: int, dtype, gen, device) -> dict:
-    """Causal prefill attention of one S-token sequence."""
+def _flash_attention_case(spec, S: int, dtype, gen, device,
+                          label: str) -> dict:
+    """Causal prefill attention of one S-token sequence at ``spec``'s
+    heads; a second launch must give the same bits."""
     import torch
     from repro_torch.kernels.flash_attention import kernel, ref
     n_q, n_kv, D = spec.n_q, spec.n_kv, spec.head_dim
@@ -1231,18 +1322,25 @@ def _flash_attention_case(spec, S: int, dtype, gen, device) -> dict:
                            device=device).to(dtype)
                for h in (n_q, n_kv, n_kv))
     out = kernel.flash_attention(q, k, v)
+    again = kernel.flash_attention(q, k, v)
     plain = ref.flash_attention_ref(q, k, v)
     torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
-    err, tol = _check_close("flash_attention", out, plain, dname)
-    del plain
+    err, tol = _check_close(f"flash_attention {label}", out, plain, dname)
+    rel = _check_rel(f"flash_attention {label}", out, plain, dname)
+    if not torch.equal(out, again):
+        raise AssertionError(f"flash_attention {label} {dname}: two "
+                             f"launches differ")
+    del plain, again
     q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
     n_bytes = (2 * S * n_q * D + 2 * S * n_kv * D) * q.element_size()
     b_ms, b_by = bound_ms(n_bytes, 4.0 * D * n_q * S * (S + 1) / 2, dname)
-    return {
-        "B": 1, "S": S, "n_q": n_q, "n_kv": n_kv, "D": D, "dtype": dname,
-        "max_abs_err": err, "tol": tol,
+    rec = {
+        "model": label, "B": 1, "S": S, "n_q": n_q, "n_kv": n_kv, "D": D,
+        "dtype": dname, "max_abs_err": err, "tol": tol, "rel_err": rel,
         "ms": time_ms(lambda: kernel.flash_attention(q, k, v), iters=10),
+        "host_us": host_us(lambda: kernel.flash_attention(q, k, v)),
+        "ms_first_design": FIRST_DESIGN_FLASH_MS.get((label, dname)),
         "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v),
                             iters=5),
         "library_ms": time_ms(lambda: _sdpa(q4, k4, v4, is_causal=True),
@@ -1250,6 +1348,11 @@ def _flash_attention_case(spec, S: int, dtype, gen, device) -> dict:
         "library": "scaled_dot_product_attention(is_causal=True)",
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    if rec["ms_first_design"]:
+        rec["speedup_vs_first_design"] = rec["ms_first_design"] / rec["ms"]
+    rec["vs_library"] = rec["ms"] / rec["library_ms"]
+    _rates(rec, n_bytes, 4.0 * D * n_q * S * (S + 1) / 2)
+    return rec
 
 
 def paged_cases(spec, lengths: list, device) -> list:
@@ -1278,19 +1381,98 @@ def phase_attention_kernels(main: dict, cont: dict, device) -> tuple:
         pa.append(_paged_attention_case(spec, cont["decode_lengths"], dtype,
                                         gen, device))
         fa.append(_flash_attention_case(spec, LONG_PROMPT, dtype, gen,
-                                        device))
+                                        device, "llama3-8b"))
     # the widest heads the kernel takes, at their models' head counts
     for model, n_q, n_kv, D in WIDE_HEADS:
         for dtype in (torch.float32, torch.bfloat16):
-            fa.append({"model": model, **_flash_attention_case(
+            fa.append(_flash_attention_case(
                 SimpleNamespace(n_q=n_q, n_kv=n_kv, head_dim=D),
-                LONG_PROMPT, dtype, gen, device)})
+                LONG_PROMPT, dtype, gen, device, model))
     pa += paged_cases(spec, cont["decode_lengths"], device)
     for c in pa:
         log("kernels", kernel="paged_attention", **c)
     for c in fa:
         log("kernels", kernel="flash_attention", **c)
     return pa, fa, time.perf_counter() - t0
+
+
+BF16_PREFILL_REPEATS = 5           # warm prefills timed on the host clock
+
+
+def bf16_prefill(art, device) -> dict:
+    """One LONG_PROMPT-token prompt, batch 1, through the static
+    ``Engine`` in bf16 (compute and cache; the FFN through kernel 1's
+    bf16 routine, attention through kernel 4's): the kernel launches of
+    the first prefill, its last-position logits (finite), the median
+    wall time of BF16_PREFILL_REPEATS warm prefills, and one more under
+    ``torch.profiler`` for device time by kernel class and kernel 4's
+    share of it."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import counters
+    from repro_torch.serve.config import ServeConfig
+    from repro_torch.serve.engine import Engine
+    eng = Engine.from_artifact(art, ServeConfig(
+        max_seq=LONG_PROMPT + 16, compute_dtype=torch.bfloat16,
+        cache_dtype=torch.bfloat16), sparse=True)
+    prompt = torch.as_tensor(np.random.default_rng(4).integers(
+        1, art.cfg.vocab, (1, LONG_PROMPT)), device=device)
+    counters.reset()
+    _, logits = eng.generate(prompt, 1, return_logits=True)
+    sync(device)
+    launches = counters.snapshot()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("bf16 prefill: non-finite logits")
+    times = []
+    for _ in range(BF16_PREFILL_REPEATS):
+        sync(device)
+        t0 = time.perf_counter()
+        eng.generate(prompt, 1)
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.generate(prompt, 1)
+        sync(device)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_class: dict = {}
+    for e in dev:
+        c = kernel_class(e.name)
+        by_class[c] = by_class.get(c, 0.0) + (e.time_range.end
+                                              - e.time_range.start) / 1e3
+    total = sum(by_class.values())
+    return {"prompt": LONG_PROMPT, "launches": launches,
+            "prefill_ms": sorted(times)[len(times) // 2],
+            "prefill_ms_all": times,
+            "device_ms": total or None,
+            "device_busy_ms": _busy_us([(e.time_range.start,
+                                         e.time_range.end)
+                                        for e in dev]) / 1e3 or None,
+            "by_class_ms": dict(sorted(by_class.items(),
+                                       key=lambda kv: -kv[1])),
+            "flash_share": (by_class.get("flash_attention", 0.0) / total
+                            if total else None)}
+
+
+def phase_bf16_prefill(main: dict, device) -> dict:
+    """bf16_prefill on the pruned llama3-8b: one kernel-4 launch a
+    layer, and kernel 1 once a packed FFN projection."""
+    art = main["art"]
+    t0 = time.perf_counter()
+    out = bf16_prefill(art, device)
+    ffn_packed = sum(1 for (_, name) in art.packed
+                     if name in ("gate", "up", "down"))
+    want = {"flash_attention": art.cfg.n_layers,
+            "block_sparse": ffn_packed}
+    if out["launches"] != want:
+        raise AssertionError(f"bf16 prefill: launches {out['launches']}, "
+                             f"expected {want}")
+    out.update(expected_launches=want, gpu=main["gpu"],
+               phase_s=time.perf_counter() - t0)
+    log("bf16_prefill", **out)
+    return out
 
 
 # ------------------------------------------------------------ MoE phase
@@ -2592,6 +2774,7 @@ def main() -> int:
     bs_cases, wm_cases = phase_kernels(main_info, device)
     pa_cases, fa_cases, attention_s = phase_attention_kernels(
         main_info, cont_info, device)
+    bf16_info = phase_bf16_prefill(main_info, device)
     quant_info = phase_quant(main_info, device, gpu)
     del main_info["art"], quant_info["art"]   # free the llama3-8b models
     torch.cuda.empty_cache()
@@ -2631,6 +2814,7 @@ def main() -> int:
               "block_sparse_cases": bs_cases, "wanda_cases": wm_cases,
               "paged_attention_cases": pa_cases,
               "flash_attention_cases": fa_cases,
+              "bf16_prefill": bf16_info,
               "moe": moe_info, "moe_trace": moe_trace,
               "grouped_block_sparse_cases": gb_cases,
               "ragged_block_sparse_cases": rg_cases,

@@ -1,14 +1,26 @@
 """Launcher for the CUDA causal flash attention
 (``csrc/flash_attention.cu``).
 
-The GPU counterpart of the TPU kernel
+Both routines replace the TPU kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention``: causal GQA
 self-attention with an online softmax over KV tiles, strictly future
-tiles skipped and only the diagonal tile masked. The kernel reads and
-writes the model's (B, S, H, D) layout directly, so the wrapper makes no
-layout copies. The library is built with ``nvcc`` at first launch and
-bound with ``ctypes``; nothing is built or loaded when this module is
-imported.
+tiles skipped and only the diagonal tile masked. Both are bound by
+operations on the H100 (about 4 D n_q S^2 / 2 FLOPs against tens of MB
+of q/k/v/out at S 3072):
+
+- float32: IEEE FFMA (no TF32, which the f32 gates need), 64-row tiles
+  in shared memory, at the FFMA rate;
+- bfloat16: the tensor cores by ``wgmma``, 128-row Q tiles of two
+  warpgroups, K/V tiles streamed by ``cp.async`` into 128-byte-swizzled
+  slabs the descriptors name, the softmax on the score fragments in
+  registers and P fed back from registers as bf16 (as the plain version
+  rounds it); two blocks an SM at head dims up to 128. The 16-byte
+  copies need q, k and v to start on 16 bytes.
+
+The kernel reads and writes the model's (B, S, H, D) layout directly, so
+the wrapper makes no layout copies. The library is built with ``nvcc``
+at first launch and bound with ``ctypes``; nothing is built or loaded
+when this module is imported.
 """
 from __future__ import annotations
 
@@ -66,6 +78,9 @@ def _check(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes for the bf16 "
+                             f"routine's cp.async copies")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,

@@ -179,15 +179,22 @@ def test_outlier_ratio_kernel_matches_plain(cuda, shape):
     assert (part - plain).abs().max().item() <= 1e-5 * plain.abs().max().item()
 
 
-# f32: summation order (online softmax vs one softmax); bf16: the plain
-# version rounds its probabilities and output to bf16, the kernel only its
-# output, so they part by about one bf16 ulp of the largest output
+# f32: summation order (online softmax vs one softmax); bf16: both round
+# their output to bf16, and their probabilities before P.V (the plain
+# version the normalised ones, flash attention's tensor-core routine the
+# unnormalised ones; paged attention keeps them in f32), so they part by
+# about one bf16 ulp of the largest output. The largest outputs sit in
+# the first rows, so the bulk is also held to its own scale: the
+# Frobenius norm of the error within the same fraction of the plain one's
 ATTN_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
 
 
 def _attn_close(got, plain, dtype):
-    err = (got.float() - plain.float()).abs().max().item()
+    diff = got.float() - plain.float()
+    err = diff.abs().max().item()
     assert err <= ATTN_RTOL[dtype] * max(1.0, plain.float().abs().max().item())
+    rel = diff.norm().item() / max(plain.float().norm().item(), 1e-30)
+    assert rel <= ATTN_RTOL[dtype]
 
 
 def _paged_case(group: int, block: int, seed: int, n_kv=2, D=128, B=6,
@@ -361,15 +368,20 @@ def test_paged_attention_kernel_wide_heads(cuda, group, n_kv, D, dtype):
     _attn_close(out[live], plain[live], dtype)
 
 
-@pytest.mark.parametrize("S", [1024, 3072])
-@pytest.mark.parametrize("group", [1, 3, 4])
+def _flash_inputs(B, S, group, n_kv, D, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(
+        (B, S, h, D)).astype(np.float32)).to(device, dtype)
+        for h in (n_kv * group, n_kv, n_kv))
+
+
+@pytest.mark.parametrize("S", [64, 192, 1024, 3072])
+@pytest.mark.parametrize("group", [1, 3, 4, 8, 12])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, S, group, dtype):
-    rng = np.random.default_rng(40 + group)
-    n_kv, D = 2, 128
-    q, k, v = (torch.from_numpy(rng.standard_normal(
-        (1, S, h, D)).astype(np.float32)).to(cuda, dtype)
-        for h in (n_kv * group, n_kv, n_kv))
+    """B 2, 2 kv heads, D 128: S of one 64-row tile, of a 128-row tile
+    and a half (S 192), and the long prefills; groups 1 to 12."""
+    q, k, v = _flash_inputs(2, S, group, 2, 128, dtype, 40 + group, cuda)
     counters.reset()
     out = fa_ops.flash_attention_bshd(q, k, v)
     torch.cuda.synchronize()
@@ -378,13 +390,19 @@ def test_flash_attention_kernel_matches_plain(cuda, S, group, dtype):
     _attn_close(out, fa_ref.flash_attention_ref(q, k, v), dtype)
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 192, 256])
-def test_flash_attention_kernel_head_widths(cuda, D):
-    rng = np.random.default_rng(50 + D)
-    q, k, v = (torch.from_numpy(rng.standard_normal(
-        (2, 128, h, D)).astype(np.float32)).to(cuda) for h in (6, 2, 2))
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_head_widths(cuda, D, dtype):
+    q, k, v = _flash_inputs(2, 128, 3, 2, D, dtype, 50 + D, cuda)
     _attn_close(fa_kernel.flash_attention(q, k, v),
-                fa_ref.flash_attention_ref(q, k, v), torch.float32)
+                fa_ref.flash_attention_ref(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_is_deterministic(cuda, dtype):
+    q, k, v = _flash_inputs(2, 1024, 3, 2, 128, dtype, 60, cuda)
+    first = fa_kernel.flash_attention(q, k, v)
+    assert torch.equal(first, fa_kernel.flash_attention(q, k, v))
 
 
 def test_flash_attention_kernel_raises_on_what_it_does_not_take(cuda):
@@ -401,9 +419,19 @@ def test_flash_attention_kernel_raises_on_what_it_does_not_take(cuda):
         (q.transpose(1, 2).contiguous().transpose(1, 2), k, v),  # layout
         (q, k.cpu(), v),                                    # mixed devices
     ]
+    # bf16 views that are contiguous but start 2 bytes past 16: the
+    # routine's 16-byte cp.async copies cannot read them
+    qb, kb = q.bfloat16(), k.bfloat16()
+
+    def off16(t):
+        flat = torch.zeros(t.numel() + 8, dtype=t.dtype, device=t.device)
+        return flat[1:1 + t.numel()].view(t.shape)
+
+    bad += [(off16(qb), kb, kb), (qb, off16(kb), kb), (qb, kb, off16(kb))]
     for args in bad:
         with pytest.raises(ValueError):
             fa_kernel.flash_attention(*args)
+    assert fa_kernel.flash_attention(qb, kb, kb).shape == qb.shape
 
 
 # ------------------------------------------- grouped and ragged (MoE)
