@@ -36,7 +36,8 @@ Phases, each printing one line of its own:
                 shapes of the paths above, with times, bounds and a
                 library yardstick; kernel 1 also at a 512-row prefill,
                 and in f32 held bitwise to kernel 6 with one expert
-                (the fmaf order kernels 6-9 keep); kernel 3 also at the
+                (one warp routine; kernels 7 and 9 keep its fmaf order);
+                kernel 3 also at the
                 paged trace's 8 rows of 256, the longest row alone and
                 gemma-2b's and nemotron-4-340b's heads, each case run
                 again with a twin of its longest row that must give that
@@ -64,7 +65,16 @@ Phases, each printing one line of its own:
                 continuous engine's paged pool through the paged kernel,
                 held to a dense contiguous run; a decode trace, sparse
                 and dense; kernels 6 and 7 against their plain versions
-                at layer 0's gate and down stacks;
+                at layer 0's gate and down stacks (kernel 6 at the 4 x 32
+                prefill's 16 slot rows and at a 3072-token prompt's 240,
+                with its host time a call and its first design's time;
+                kernel 6 with one expert held bitwise to kernel 1 in both
+                types at both heights);
+   moe bf16 prefill — one 3072-token prompt, batch 1, through the static
+                ``Engine`` in bf16 on the pruned qwen3-moe: kernel 6
+                three times a layer (240 capacity rows an expert), kernel
+                4 once, finite logits, the prefill's wall time and kernel
+                6's share of its device time;
 8. quant      — llama3-8b again, pruned with ``recipes/quant-smoke.json``
                 (golden-smoke plus int8 kept tiles): the plans' host round
                 trip checked exact, then 4 prompts x 32 greedy tokens on
@@ -84,7 +94,8 @@ Phases, each printing one line of its own:
                 (kernel 5 on absolute slots) paths and the "none" ones; 8
                 requests on the paged pool with int8 and "none", tokens
                 equal; mirrored tok/s and decode traces as for llama;
-                kernels 8 and 9 at layer 0's gate and down stacks;
+                kernels 8 and 9 at layer 0's gate and down stacks
+                (kernel 8 at 16 and 240 slot rows, as kernel 6);
 10. ssm       — mamba2-1.3b at full width and depth (48 layers, random
                 weights from seed 0), after the MoE tensors are freed:
                 ``MosaicPipeline`` on ``recipes/golden-smoke.json`` with
@@ -166,6 +177,32 @@ FIRST_DESIGN_MS = {
 FIRST_DESIGN_QUANT_MS = {
     ("layer0.gate", 16, 16, "float32"): 0.2026,
     ("layer0.gate", 16, 16, "bfloat16"): 0.2016,
+}
+# Kernels 6 and 8 of the first design (one 256-thread block per 16-row
+# tile through block_sparse_tile.cuh, scalar loads, FFMA in both types),
+# ms at each grouped case of phase_moe_kernels: M 16 from this script's
+# proof run at commit 67e32a9, M 240 from its _grouped_case driving
+# commit 67e32a9's package; both on an NVIDIA H100 80GB HBM3 at 700.00 W.
+# Keys (case, M, dtype).
+FIRST_DESIGN_GROUPED_MS = {
+    ("layer0.gate", 16, "float32"): 0.3144,
+    ("layer0.gate", 16, "bfloat16"): 0.2884,
+    ("layer0.down", 16, "float32"): 0.6493,
+    ("layer0.down", 16, "bfloat16"): 0.5966,
+    ("layer0.gate", 240, "float32"): 3.2615,
+    ("layer0.gate", 240, "bfloat16"): 3.1644,
+    ("layer0.down", 240, "float32"): 7.5186,
+    ("layer0.down", 240, "bfloat16"): 7.4048,
+}
+FIRST_DESIGN_QUANT_GROUPED_MS = {
+    ("layer0.gate", 16, "float32"): 0.3307,
+    ("layer0.gate", 16, "bfloat16"): 0.3281,
+    ("layer0.down", 16, "float32"): 0.6978,
+    ("layer0.down", 16, "bfloat16"): 0.6964,
+    ("layer0.gate", 240, "float32"): 3.6077,
+    ("layer0.gate", 240, "bfloat16"): 3.5766,
+    ("layer0.down", 240, "float32"): 8.2296,
+    ("layer0.down", 240, "bfloat16"): 8.1873,
 }
 # Kernel 3 of the first design (one thread block per (row, kv head)
 # walking the whole row, scalar loads, one thread a head's softmax), ms at
@@ -341,6 +378,7 @@ def phase_build(device) -> dict:
     from repro_torch.kernels import build
     from repro_torch.kernels.block_sparse import kernel as bs_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.grouped_block_sparse import kernel as g_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.wanda_metric import kernel as wm_kernel
     sources = build.SOURCES
@@ -393,6 +431,28 @@ def phase_build(device) -> dict:
                    or len(out["block_sparse_kernels"]) != 32):
         raise AssertionError("the ptxas report names no kernel-1/5 "
                              "instantiations as expected")
+    # kernels 6 and 8: one warp a slice (f32; bf16 at 16-row tiles) or a
+    # block of four slices sharing its x stage (bf16 at 64-row tiles)
+    report = built[sources.index(g_kernel.SOURCE)][2]
+    spills = ptxas_spills(report)
+    out["grouped_kernels"] = {}
+    for name, n in out["per_source"][g_kernel.SOURCE]["registers"].items():
+        m = re.search(r"\d((?:quant_)?grouped_kernel)I(f|13__nv_bfloat16)"
+                      r"Li(\d+)ELi(\d+)E", name)
+        key = None
+        if m:
+            dt = "f32" if m.group(2) == "f" else "bf16"
+            key = f"{m.group(1)}<{dt},{m.group(3)},{m.group(4)}>"
+        m = re.search(r"grouped_shared_x_kernelILi(\d+)ELb([01])E", name)
+        if m:
+            key = (f"{'quant_' if m.group(2) == '1' else ''}"
+                   f"grouped_shared_x_kernel<bf16,{m.group(1)},64>")
+        if key:
+            out["grouped_kernels"][key] = {
+                "registers": n, "spill_bytes": spills.get(name, 0)}
+    if report and len(out["grouped_kernels"]) != 32:
+        raise AssertionError(f"kernel 6/8 instantiations: "
+                             f"{sorted(out['grouped_kernels'])}")
     # mangled names: ...<len>ssd_<stage>_kernelI<dtype>[Li<PS>E]E...
     out["kernel10_registers"] = {}
     for name, n in out["per_source"][ssd_kernel.SOURCE]["registers"].items():
@@ -887,6 +947,7 @@ GEMM_MARKS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "splitk")
 def kernel_class(name: str) -> str:
     n = name.lower()
     for k, c in (("grouped_kernel", "grouped_block_sparse"),
+                 ("grouped_shared_x", "grouped_block_sparse"),
                  ("ragged_kernel", "ragged_block_sparse"),
                  ("ssd_", "ssd_scan")):
         if k in n:
@@ -1123,8 +1184,8 @@ def _block_sparse_case(w, plan_mask, M: int, block: int, dtype, gen,
     dname = str(dtype).replace("torch.", "")
     order = None
     if dtype == torch.float32 and block == 16:
-        # the fmaf order of the tile routine kernels 6-9 keep: kernel 6
-        # with one expert over the same plan gives the same bits
+        # one warp routine, whose fmaf order kernels 7 and 9 keep too:
+        # kernel 6 with one expert over the same plan gives the same bits
         y6 = g_kernel.grouped_block_sparse_matmul(
             x[None], w[None], counts[None], indices[None],
             torch.ones((1, M // 16), dtype=torch.int32, device=dev), block,
@@ -1401,11 +1462,12 @@ BF16_PREFILL_REPEATS = 5           # warm prefills timed on the host clock
 
 def bf16_prefill(art, device) -> dict:
     """One LONG_PROMPT-token prompt, batch 1, through the static
-    ``Engine`` in bf16 (compute and cache; the FFN through kernel 1's
-    bf16 routine, attention through kernel 4's): the kernel launches of
-    the first prefill, its last-position logits (finite), the median
-    wall time of BF16_PREFILL_REPEATS warm prefills, and one more under
-    ``torch.profiler`` for device time by kernel class and kernel 4's
+    ``Engine`` in bf16 (compute and cache; a dense FFN through kernel 1's
+    bf16 routine, an MoE one through kernel 6's, attention through
+    kernel 4's): the kernel launches of the first prefill, its
+    last-position logits (finite), the median wall time of
+    BF16_PREFILL_REPEATS warm prefills, and one more under
+    ``torch.profiler`` for device time by kernel class and each class's
     share of it."""
     import numpy as np
     import torch
@@ -1438,10 +1500,13 @@ def bf16_prefill(art, device) -> dict:
         sync(device)
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_class: dict = {}
+    by_name: dict = {}
     for e in dev:
         c = kernel_class(e.name)
-        by_class[c] = by_class.get(c, 0.0) + (e.time_range.end
-                                              - e.time_range.start) / 1e3
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        by_class[c] = by_class.get(c, 0.0) + ms
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + ms)
     total = sum(by_class.values())
     return {"prompt": LONG_PROMPT, "launches": launches,
             "prefill_ms": sorted(times)[len(times) // 2],
@@ -1452,6 +1517,12 @@ def bf16_prefill(art, device) -> dict:
                                         for e in dev]) / 1e3 or None,
             "by_class_ms": dict(sorted(by_class.items(),
                                        key=lambda kv: -kv[1])),
+            "share": {c: t / total for c, t in by_class.items()}
+            if total else None,
+            "top_kernels": [
+                {"name": n[:120], "launches": k, "ms": t}
+                for n, (k, t) in sorted(by_name.items(),
+                                        key=lambda kv: -kv[1][1])[:12]],
             "flash_share": (by_class.get("flash_attention", 0.0) / total
                             if total else None)}
 
@@ -1526,7 +1597,7 @@ def moe_static_runs(art, device, ways=MOE_WAYS) -> dict:
 def moe_layer_bitwise(art, device, quants=(None,)) -> dict:
     """Layer 0's MoE feed-forward on one decode batch and one prefill
     batch of random hidden states: ragged, grouped and loop rows must be
-    bitwise equal (the shared tile routine), under each serve-time
+    bitwise equal (one fmaf order in f32), under each serve-time
     ``quant`` of ``quants`` (int8 plans: "int8" and "none" too). These
     launches are checks, not part of a counted run."""
     import torch
@@ -1729,10 +1800,12 @@ def _moe_routing(E: int, K: int, G: int, s: int, C: int, gen, device):
 
 
 def _grouped_case(w, plan, spec, dtype, gen, label: str,
-                  quant: bool = False) -> dict:
-    """Kernel 6 at an MoE prefill: BATCH groups of PROMPT_LEN tokens
+                  quant: bool = False, groups: int = BATCH,
+                  tokens: int = PROMPT_LEN) -> dict:
+    """Kernel 6 at an MoE prefill: ``groups`` groups of ``tokens`` tokens
     routed top-k over the experts, capacity slots (E, G*C, K) with the
-    router's occupancy, through the pruned stack ``w``. With ``quant``,
+    router's occupancy, through the pruned stack ``w``, as one panel of
+    G*C rows (the serving path's choice up to 1024 rows). With ``quant``,
     kernel 8 over the int8 plan, held bitwise to kernel 6 over ``w``
     (the fake-quant stack the plan encodes)."""
     import torch
@@ -1741,13 +1814,13 @@ def _grouped_case(w, plan, spec, dtype, gen, label: str,
     dev = w.device
     E, K, N = w.shape
     b = plan.block
-    C = capacity(spec, PROMPT_LEN)
-    ids, onehot, keep, _ = _moe_routing(E, spec.top_k, BATCH, PROMPT_LEN, C,
+    C = capacity(spec, tokens)
+    ids, onehot, keep, _ = _moe_routing(E, spec.top_k, groups, tokens, C,
                                         gen, dev)
     count_ge = (onehot * keep[..., None]).sum(dim=1)        # (G, E)
     row_live = (torch.arange(C, device=dev)[None, None, :]
-                < count_ge.T[:, :, None]).reshape(E, BATCH * C)
-    M = BATCH * C
+                < count_ge.T[:, :, None]).reshape(E, groups * C)
+    M = groups * C
     pad = (-M) % 16
     xs = torch.randn((E, M, K), generator=gen, device=dev)
     xs = (xs * row_live[..., None]).to(dtype)
@@ -1793,18 +1866,67 @@ def _grouped_case(w, plan, spec, dtype, gen, label: str,
         n_bytes += live_tiles * b * b * s_ \
             + 4 * int(live_e.sum()) * plan.indices[0].numel()
     b_ms, b_by = bound_ms(n_bytes, 2.0 * M * live_tiles * b * b, dname)
-    return {
+    first = (FIRST_DESIGN_QUANT_GROUPED_MS if quant
+             else FIRST_DESIGN_GROUPED_MS).get((label, M, dname))
+    rec = {
         "case": label, "E": E, "M": M, "K": K, "N": N, "block": b,
-        "capacity": C, "dtype": dname, "quant": quant,
-        "experts_computed": int(experts), "live_rows": int(row_live.sum()),
-        "live_tiles": live_tiles, "max_abs_err": err, "tol": tol,
-        "ms": time_ms(launch),
+        "groups": groups, "tokens": tokens, "capacity": C, "dtype": dname,
+        "quant": quant, "experts_computed": int(experts),
+        "live_rows": int(row_live.sum()), "live_tiles": live_tiles,
+        "max_abs_err": err, "tol": tol,
+        "ms": time_ms(launch), "host_us": host_us(launch),
+        "ms_first_design": first,
         "plain_ms": time_ms(lambda: ref.grouped_block_sparse_matmul_ref(
             xs, w, masks, b, b, work=work, block_m=M), iters=5),
         "library_ms": time_ms(lambda: torch.bmm(xs, w)),
         "library": "torch.bmm over the block-masked dense stack",
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    rec["speedup_vs_first_design"] = first / rec["ms"] if first else None
+    _rates(rec, n_bytes, 2.0 * M * live_tiles * b * b)
+    return rec
+
+
+def _grouped_tile_record(c: dict, dtype) -> dict:
+    """The tile kernel 6 or 8 takes for a case of ``_grouped_case`` (one
+    panel of M rows): the Python rule, held to the library's."""
+    from repro_torch.kernels.grouped_block_sparse import kernel
+    weight = "int8" if c["quant"] else "dense"
+    cfg = kernel.tile_config(c["M"], c["M"], c["block"], dtype, weight)
+    lib = kernel.library_tile_config(c["M"], c["M"], c["block"], dtype,
+                                     weight)
+    if lib != {k: cfg[k] for k in lib}:
+        raise AssertionError(f"grouped tile rule {cfg} differs from the "
+                             f"library's {lib}")
+    return cfg
+
+
+def _one_expert_bitwise(w, plan, dtype, M: int, gen) -> dict:
+    """Kernel 6 with one expert (the stack's expert with the most live
+    tiles) against kernel 1 on that expert's plan: the same items in the
+    same order, so the same bits, f32 and bf16, at 16- and 64-row
+    M-tiles."""
+    import torch
+    from repro_torch.kernels.block_sparse import kernel as bs_kernel
+    from repro_torch.kernels.grouped_block_sparse import kernel
+    dev = w.device
+    e = int(plan.counts.sum(dim=1).argmax())
+    we = w[e].to(dtype).contiguous()
+    counts = plan.counts[e].contiguous()
+    indices = plan.indices[e].contiguous()
+    x = torch.randn((M, we.shape[0]), generator=gen, device=dev).to(dtype)
+    y1 = bs_kernel.block_sparse_matmul(x, we, counts, indices, plan.block)
+    y6 = kernel.grouped_block_sparse_matmul(
+        x[None], we[None], counts[None], indices[None],
+        torch.ones((1, 1), dtype=torch.int32, device=dev), plan.block, M)[0]
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    if not torch.equal(y1, y6):
+        raise AssertionError(f"kernel 6 with one expert differs from kernel "
+                             f"1 at M {M} {dname} by "
+                             f"{float((y1.float() - y6.float()).abs().max())}")
+    return {"expert": e, "M": M, "dtype": dname, "bitwise_equal": True,
+            "live_tiles": int(counts.sum())}
 
 
 def _ragged_case(w, plan, spec, dtype, gen, label: str,
@@ -1887,7 +2009,11 @@ def _ragged_case(w, plan, spec, dtype, gen, label: str,
 def phase_moe_kernels(moe: dict, device, quant: bool = False) -> tuple:
     """Kernels 6 and 7 (with ``quant``: 8 and 9) against their plain
     versions at the MoE path's shapes: layer 0's pruned gate and down
-    stacks, f32 and bf16."""
+    stacks, f32 and bf16; the grouped kernel at the 4 x 32 prefill (M 16)
+    and at a LONG_PROMPT-token prompt (one panel of M 240 rows, 64-row
+    M-tiles). Without ``quant``, also kernel 6 with one expert held
+    bitwise to kernel 1 at both M, in both types (logged under
+    ``one_expert``)."""
     import torch
     art = moe["art"]
     spec = art.cfg.layer(0).ffn
@@ -1897,8 +2023,11 @@ def phase_moe_kernels(moe: dict, device, quant: bool = False) -> tuple:
         w = art.params["blocks"][0]["moe"][name]
         plan = art.packed[(0, name)]
         for dtype in (torch.float32, torch.bfloat16):
-            grouped.append(_grouped_case(w, plan, spec, dtype, gen,
-                                         f"layer0.{name}", quant))
+            for groups, tokens in ((BATCH, PROMPT_LEN), (1, LONG_PROMPT)):
+                c = _grouped_case(w, plan, spec, dtype, gen,
+                                  f"layer0.{name}", quant, groups, tokens)
+                c["tile"] = _grouped_tile_record(c, dtype)
+                grouped.append(c)
             ragged.append(_ragged_case(w, plan, spec, dtype, gen,
                                        f"layer0.{name}", quant))
     q = "quant_" if quant else ""
@@ -1906,7 +2035,37 @@ def phase_moe_kernels(moe: dict, device, quant: bool = False) -> tuple:
         log("kernels", kernel=f"{q}grouped_block_sparse_matmul", **c)
     for c in ragged:
         log("kernels", kernel=f"{q}ragged_block_sparse_matmul", **c)
+    if not quant:
+        w = art.params["blocks"][0]["moe"]["gate"]
+        moe["one_expert"] = [
+            _one_expert_bitwise(w, art.packed[(0, "gate")], dtype, M, gen)
+            for dtype in (torch.float32, torch.bfloat16)
+            for M in sorted({c["M"] for c in grouped})]
+        log("kernels", kernel="grouped_block_sparse_matmul",
+            one_expert=moe["one_expert"])
     return grouped, ragged
+
+
+def phase_moe_bf16_prefill(moe: dict, device) -> dict:
+    """bf16_prefill on the pruned qwen3-moe-30b-a3b: every MoE projection
+    of the 3072-token prompt through kernel 6 (one capacity-slot panel of
+    240 rows an expert), attention through kernel 4; kernel 6's share of
+    the prefill's device time."""
+    art = moe["art"]
+    t0 = time.perf_counter()
+    out = bf16_prefill(art, device)
+    L = art.cfg.n_layers
+    want = {"grouped_block_sparse": 3 * L, "flash_attention": L}
+    got = {k: v for k, v in out["launches"].items()
+           if not k.endswith("_experts_computed")}
+    if got != want:
+        raise AssertionError(f"moe bf16 prefill: launches {out['launches']}, "
+                             f"expected {want}")
+    out.update(expected_launches=want, gpu=moe["gpu"],
+               grouped_share=(out["share"] or {}).get("grouped_block_sparse"),
+               phase_s=time.perf_counter() - t0)
+    log("moe_bf16_prefill", **out)
+    return out
 
 
 # ------------------------------------------------------------ int8 phases
@@ -2784,6 +2943,7 @@ def main() -> int:
     for t in moe_trace:
         log("trace", gpu=gpu, model=MOE_ARCH, **t)
     gb_cases, rg_cases = phase_moe_kernels(moe_info, device)
+    moe_bf16_info = phase_moe_bf16_prefill(moe_info, device)
     del moe_info["art"]
     torch.cuda.empty_cache()
     moe_quant_info = phase_moe_quant(device, gpu)
@@ -2799,6 +2959,7 @@ def main() -> int:
     hybrid_info = phase_hybrid(device, gpu)
     hybrid_info["phase_s"] = time.perf_counter() - t_hybrid
     log("phases", ssm_s=ssm_info["phase_s"],
+        moe_bf16_prefill_s=moe_bf16_info["phase_s"],
         hybrid_s=hybrid_info["phase_s"], attention_kernels_s=attention_s,
         before_ssm_s=t_ssm - t_start)
     table = kernel_table(main_info, cont_info, moe_info, quant_info,
@@ -2816,6 +2977,7 @@ def main() -> int:
               "flash_attention_cases": fa_cases,
               "bf16_prefill": bf16_info,
               "moe": moe_info, "moe_trace": moe_trace,
+              "moe_bf16_prefill": moe_bf16_info,
               "grouped_block_sparse_cases": gb_cases,
               "ragged_block_sparse_cases": rg_cases,
               "quant": quant_info, "moe_quant": moe_quant_info,

@@ -21,11 +21,13 @@
 //
 // Numerics: f32 is plain FFMA (no TF32) with each output one fmaf chain
 // over the live K-blocks in plan order, k ascending: bitwise the order of
-// block_sparse_tile.cuh, which the grouped and ragged kernels (6-9) keep,
-// so a row is bitwise equal across kernel 1 and kernels 6-9 in f32. bf16
-// runs on the tensor cores (mma.sync m16n8k16, f32 accumulation across
-// K-blocks in plan order, one rounding at the end); it is not bitwise
-// equal to kernels 6-9, which widen bf16 onto the FFMA units. Kernel 5
+// block_sparse_tile.cuh, which the ragged kernels (7, 9) keep, so a row
+// is bitwise equal across kernel 1 and kernels 6-9 in f32. bf16 runs on
+// the tensor cores (mma.sync m16n8k16, f32 accumulation across K-blocks
+// in plan order, one rounding at the end), as the grouped kernels (6, 8)
+// do on the same routine, so kernel 6 with one expert is bitwise kernel 1
+// in bf16 too; it is not bitwise equal to kernels 7 and 9, which widen
+// bf16 onto the FFMA units. Kernel 5
 // dequantises each int8 sub-tile into the tile the dense code reads
 // (float(q) * 2^e, exact in f32 and bf16), so it is bitwise equal to
 // kernel 1 over the dequantised weight in both types.
@@ -67,40 +69,8 @@
 namespace {
 
 namespace bsp = block_sparse_pipe;
+using bsp::Config;
 using bsp::kMaxWarps;
-
-struct Config {
-  int m_tile, stages, warps, mma, smem;  // mma: 0 FFMA, 1 mma.sync
-};
-
-template <typename T, int BM, bool kInt8>
-constexpr int warp_bytes() {
-  return bsp::Smem<T, BM, kInt8>::kWarp;
-}
-
-int warp_bytes(bool bf16, int bm, bool int8) {
-  if (bf16) {
-    if (bm == 16)
-      return int8 ? warp_bytes<__nv_bfloat16, 16, true>()
-                  : warp_bytes<__nv_bfloat16, 16, false>();
-    return int8 ? warp_bytes<__nv_bfloat16, 64, true>()
-                : warp_bytes<__nv_bfloat16, 64, false>();
-  }
-  if (bm == 16)
-    return int8 ? warp_bytes<float, 16, true>() : warp_bytes<float, 16, false>();
-  return int8 ? warp_bytes<float, 64, true>() : warp_bytes<float, 64, false>();
-}
-
-// The tile choice; kernels/block_sparse/kernel.py::tile_config mirrors it.
-Config choose(int M, bool bf16, bool int8) {
-  Config c;
-  c.m_tile = M >= 64 ? 64 : 16;
-  c.stages = bsp::stages(bf16, c.m_tile, int8);
-  c.warps = bsp::warps(bf16, c.m_tile);
-  c.mma = bf16 ? 1 : 0;
-  c.smem = c.warps * warp_bytes(bf16, c.m_tile, int8);
-  return c;
-}
 
 // warp g of the grid -> (column n, slice, M-tile), the M-tile fastest
 template <typename T, int BN, int BM, bool kInt8>
@@ -168,8 +138,8 @@ int launch_tile(const Args& a, const Config& c, cudaStream_t st) {
   // the attribute once per (T, BN, BM), at the largest block either
   // kernel may take
   static const cudaError_t attr = [] {
-    constexpr int dense = warp_bytes<T, BM, false>();
-    constexpr int quant = warp_bytes<T, BM, true>();
+    constexpr int dense = bsp::Smem<T, BM, false>::kWarp;
+    constexpr int quant = bsp::Smem<T, BM, true>::kWarp;
     constexpr int bytes = kMaxWarps * (dense > quant ? dense : quant);
     cudaError_t e = cudaFuncSetAttribute(
         block_sparse_kernel<T, BN, BM>,
@@ -206,7 +176,7 @@ int launch_tile(const Args& a, const Config& c, cudaStream_t st) {
 template <typename T, int BN>
 int launch_block(const Args& a, cudaStream_t st) {
   const Config c =
-      choose(a.M, !std::is_same<T, float>::value, a.tiles != nullptr);
+      bsp::choose(a.M, !std::is_same<T, float>::value, a.tiles != nullptr);
   return c.m_tile == 16 ? launch_tile<T, BN, 16>(a, c, st)
                         : launch_tile<T, BN, 64>(a, c, st);
 }
@@ -272,7 +242,7 @@ int quant_block_sparse_matmul_bf16(const void* x, const void* tiles,
 // ring stages, warps per thread block, 0 FFMA / 1 mma.sync, dynamic
 // shared bytes per block}. Lets a caller hold the Python mirror to it.
 int block_sparse_tile_config(int M, int bf16, int int8, int* out) {
-  const Config c = choose(M, bf16 != 0, int8 != 0);
+  const Config c = bsp::choose(M, bf16 != 0, int8 != 0);
   out[0] = c.m_tile;
   out[1] = c.stages;
   out[2] = c.warps;

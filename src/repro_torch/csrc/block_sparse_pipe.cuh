@@ -1,9 +1,11 @@
-// The warp routine of the block-sparse matmuls (kernels 1 and 5,
-// block_sparse.cu): one warp computes one (BM-row M-tile, CW-column
-// slice) output tile y[r, c] = sum_k x[r, k] * w[k, c] over the live
-// K-blocks of the slice's N-block column, in plan order, through its own
-// cp.async ring of S stages. Warps never wait on each other: a thread
-// block is only a bundle of independent warps.
+// The warp routine of the block-sparse matmuls: kernels 1 and 5
+// (block_sparse.cu) and the grouped kernels 6 and 8
+// (grouped_block_sparse.cu, which point it at one expert's x, weight and
+// plan row). One warp computes one (BM-row M-tile, CW-column slice)
+// output tile y[r, c] = sum_k x[r, k] * w[k, c] over the live K-blocks
+// of the slice's N-block column, in plan order, through its own cp.async
+// ring of S stages. Warps never wait on each other: a thread block is
+// only a bundle of independent warps.
 //
 // The walk is a list of items, one per 16 K rows: live step s of the plan
 // row and chunk j of its K-block (k = idx[s] * BN + 16 j .. + 15), s in
@@ -21,9 +23,8 @@
 // one row each; 64 x 16 slices: 8 x 4 lanes, 8 rows each); x and w come
 // from shared memory as float4. Each output is one chain of fmaf over the
 // items in order, k ascending within an item, starting from 0: the order
-// of block_sparse_tile.cuh, so the result is bitwise the grouped and
-// ragged kernels' (kernels 6-9) at any M-tile. Never split along K in
-// f32.
+// of block_sparse_tile.cuh, so the result is bitwise the ragged
+// kernels' (7 and 9) at any M-tile. Never split along K in f32.
 //
 // bf16 (tensor cores): each item is one k16 step of
 // mma.sync.m16n8k16.row.col (bf16 in, f32 accumulate): ldmatrix.x4 for
@@ -32,12 +33,12 @@
 // are rounded to bf16 once at the end; inside a k16 step the order is
 // the tensor core's.
 //
-// int8 kept tiles (kernel 5): the 16-byte rows of the item's int8
+// int8 kept tiles (kernels 5 and 8): the 16-byte rows of the item's int8
 // sub-tile land by cp.async (one a lane) with the step's scale beside
 // them; the warp dequantises its columns into one f32 or bf16 tile as
 // float(q) * 2^e (exact in f32, and in bf16, whose 8 significant bits
 // hold |q| <= 127) and runs the dense code on it: the weights multiplied
-// are bitwise those of kernel 1 over the dequantised weight.
+// are bitwise those of kernel 1 (kernel 6) over the dequantised weight.
 #pragma once
 
 #include <cstdint>
@@ -103,6 +104,38 @@ struct Smem {
   static constexpr int kWarp = kS * kStage + kDeq + kScales;
 };
 
+// One warp's dynamic shared bytes for a launch's types.
+inline int warp_bytes(bool bf16, int bm, bool int8) {
+  if (bf16) {
+    if (bm == 16)
+      return int8 ? Smem<__nv_bfloat16, 16, true>::kWarp
+                  : Smem<__nv_bfloat16, 16, false>::kWarp;
+    return int8 ? Smem<__nv_bfloat16, 64, true>::kWarp
+                : Smem<__nv_bfloat16, 64, false>::kWarp;
+  }
+  if (bm == 16)
+    return int8 ? Smem<float, 16, true>::kWarp : Smem<float, 16, false>::kWarp;
+  return int8 ? Smem<float, 64, true>::kWarp : Smem<float, 64, false>::kWarp;
+}
+
+// The tile a launch takes over `rows` rows (kernels 1 and 5: M; the
+// grouped kernels: a panel of block_m rows): 64-row M-tiles from 64
+// rows, 16-row ones below. kernels/block_sparse/kernel.py::tile_config
+// mirrors it.
+struct Config {
+  int m_tile, stages, warps, mma, smem;  // mma: 0 FFMA, 1 mma.sync
+};
+
+inline Config choose(int rows, bool bf16, bool int8) {
+  Config c;
+  c.m_tile = rows >= 64 ? 64 : 16;
+  c.stages = stages(bf16, c.m_tile, int8);
+  c.warps = warps(bf16, c.m_tile);
+  c.mma = bf16 ? 1 : 0;
+  c.smem = c.warps * warp_bytes(bf16, c.m_tile, int8);
+  return c;
+}
+
 using namespace mma_sm90;
 
 __device__ __forceinline__ float part(const float4& v, int k) {
@@ -136,7 +169,8 @@ struct PlanRow {
   }
 };
 
-// One warp's output tile: rows m0 .. m0 + BM - 1 (those below M) of
+// One warp's output tile: rows m0 .. m0 + BM - 1 (those below M; the
+// grouped kernels pass the end of the tile's panel as M) of
 // columns col0 .. col0 + CW - 1, the slice at offset `sub` (0 .. BN - CW)
 // of its plan column. idx (and for int8 slots / scales) point at the
 // column's plan row of `count` live steps. `smem` is the warp's own

@@ -1,30 +1,32 @@
-// The per-tile routine of the block-sparse matmuls (block_sparse.cu and
-// grouped_block_sparse.cu): one thread block computes one (kRows x BN)
-// output tile y[r, c] = sum_k x[r, k] * w[k, c] over the live K-blocks of
-// one N-block column, in plan order.
+// The per-tile routine of the first design of the block-sparse matmuls,
+// which only the ragged kernels (7 and 9, grouped_block_sparse.cu) still
+// run: one thread block computes one (kRows x BN) output tile
+// y[r, c] = sum_k x[r, k] * w[k, c] over the live K-blocks of one
+// N-block column, in plan order. Kernels 1, 5, 6 and 8 run the warp
+// routine of block_sparse_pipe.cuh instead.
 //
-// Every kernel that includes this header maps threads to outputs the same
-// way and sums in the same order: thread tid owns column c = tid % BN and
-// rows rg, rg + RG, ... (rg = tid / BN, RG = kThreads / BN); each output is
-// one chain of fmaf over the live K-blocks in plan order, k ascending
-// within a block, with f32 inputs as they are (no TF32) and bf16 inputs
-// widened to f32 on load. An output row therefore depends only on its own
-// x row, the weight and the plan: the same token row comes out bitwise
-// equal from kernel 1, the grouped kernel and the ragged kernel, whatever
-// M-tile or row position it lands in.
+// Thread tid owns column c = tid % BN and rows rg, rg + RG, ... (rg =
+// tid / BN, RG = kThreads / BN); each output is one chain of fmaf over the
+// live K-blocks in plan order, k ascending within a block, with f32
+// inputs as they are (no TF32) and bf16 inputs widened to f32 on load.
+// An output row therefore depends only on its own x row, the weight and
+// the plan, and in f32 this is the order of the warp routine too: the
+// same token row comes out bitwise equal from the ragged kernel, the
+// grouped kernel and kernel 1, whatever M-tile or row position it lands
+// in. (In bf16 the warp routine runs on the tensor cores, so there the
+// ragged rows agree with the others within one bf16 ulp.)
 //
 // The weight comes from one of two sources, a template policy of the
 // routine: DenseWeight reads w[k, c] of the dense (K, N) weight `w`
-// (kernels 1, 6 and 7), Int8Tiles reads the step's int8 kept tile and
-// multiplies it by the tile's pow2 scale on load (kernels 5, 8 and 9;
-// `w` is unused). float(q) * 2^e is exact, so the staged weight tile,
-// and with it every fmaf of the chain, is bitwise what the dense source
-// gives over the dequantised weight; the TPU kernels scale the
-// accumulated tile product instead, which would change the order of the
-// sum here. The dense policy is an empty marker and `w` stays a
-// __restrict__ parameter of the routine, so kernels 1, 6 and 7 compile
-// to the code they had before the int8 policy existed (a pointer moved
-// into a struct member loses its read-only loads and costs registers).
+// (kernel 7), Int8Tiles reads the step's int8 kept tile and multiplies it
+// by the tile's pow2 scale on load (kernel 9; `w` is unused).
+// float(q) * 2^e is exact, so the staged weight tile, and with it every
+// fmaf of the chain, is bitwise what the dense source gives over the
+// dequantised weight; the TPU kernels scale the accumulated tile product
+// instead, which would change the order of the sum here. The dense policy
+// is an empty marker and `w` stays a __restrict__ parameter of the
+// routine (a pointer moved into a struct member loses its read-only loads
+// and costs registers).
 #pragma once
 
 #include <cstdint>

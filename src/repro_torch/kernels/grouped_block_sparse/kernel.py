@@ -13,7 +13,8 @@ read every expert's kept tiles from one int8 array through absolute
 slots. All visit only the nonzero (K-block, N-block) tiles of each
 expert's plan. The library is built with ``nvcc`` at first launch and
 bound with ``ctypes``; nothing is built or loaded when this module is
-imported.
+imported. ``tile_config`` states, without a card, the tile each grouped
+launch takes.
 """
 from __future__ import annotations
 
@@ -22,11 +23,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, counters
-from repro_torch.kernels.block_sparse.kernel import check_int8_storage
+from repro_torch.kernels.block_sparse import kernel as bs_kernel
 
 SOURCE = "grouped_block_sparse.cu"
 BLOCKS = (16, 32, 64, 128)
-TILE_ROWS = 16                     # output rows per thread block
+TILE_ROWS = 16                     # rows of a ragged tile; panels are
+#                                    multiples of it
 _FN = {("grouped", torch.float32): "grouped_block_sparse_matmul_f32",
        ("grouped", torch.bfloat16): "grouped_block_sparse_matmul_bf16",
        ("ragged", torch.float32): "ragged_block_sparse_matmul_f32",
@@ -40,6 +42,65 @@ _FN = {("grouped", torch.float32): "grouped_block_sparse_matmul_f32",
        ("quant_ragged", torch.bfloat16):
            "quant_ragged_block_sparse_matmul_bf16"}
 _BOUND: dict = {}     # (variant, dtype) -> C function with its signature
+
+
+# bf16 at 64-row tiles (``shared_x``): a thread block of SHARED_X_WARPS
+# warps owns as many adjacent 16-column slices and stages each x tile
+# once for all of them; its shared memory is a fixed part (below) plus
+# MERGE_BYTES_PER_KBLOCK a K-block of the weight, and 16.
+SHARED_X_WARPS = 4
+SHARED_X_STAGES = 6
+MERGE_BYTES_PER_KBLOCK = 8
+
+
+def tile_config(M: int, block_m: int, block: int, dtype: torch.dtype,
+                weight: str = "dense") -> dict:
+    """The tile kernel 6 (``weight="dense"``) or kernel 8 (``"int8"``)
+    launches for x (E, M, K) in panels of ``block_m`` rows under a plan
+    of ``block`` tiles: kernel 1's rule (``block_sparse.kernel.
+    tile_config``) applied to a panel's rows, so 16-row M-tiles below 64
+    rows and 64-row ones from 64, one warp a (slice, M-tile); but bf16
+    at 64-row tiles takes ``shared_x`` blocks (SHARED_X_WARPS warps, one
+    x stage for their adjacent slices; ``smem_bytes`` without the merge's
+    share). Each panel is cut into ``per_panel`` tiles, the last one
+    masked at the panel's end, so no tile holds rows of a live and a dead
+    panel. Raises on what the launch does not take."""
+    if block_m < TILE_ROWS or block_m % TILE_ROWS or M < 1 \
+            or M % block_m:
+        raise ValueError(f"block_m {block_m} must be a multiple of "
+                         f"{TILE_ROWS} that divides M = {M}")
+    cfg = bs_kernel.tile_config(block_m, block, dtype, weight)
+    cfg.update(panels=M // block_m, per_panel=-(-block_m // cfg["m_tile"]),
+               shared_x=dtype == torch.bfloat16 and cfg["m_tile"] == 64)
+    if cfg["shared_x"]:
+        k = bs_kernel.K_ROWS
+        x_stage = cfg["m_tile"] * (k + 8) * 2
+        w_tile = k * 16 if weight == "int8" else k * 24 * 2
+        smem = SHARED_X_STAGES * (x_stage + SHARED_X_WARPS * w_tile)
+        if weight == "int8":  # the dequantised tiles, a scale a stage
+            smem += SHARED_X_WARPS * k * 24 * 2 \
+                + SHARED_X_STAGES * SHARED_X_WARPS * 4
+        cfg.update(warps=SHARED_X_WARPS, stages=SHARED_X_STAGES,
+                   smem_bytes=smem)
+    return cfg
+
+
+def library_tile_config(M: int, block_m: int, block: int,
+                        dtype: torch.dtype, weight: str = "dense") -> dict:
+    """The C side's choice (builds the library): the keys of
+    ``tile_config`` that the launch decides."""
+    fn = _BOUND.get("config")
+    if fn is None:
+        fn = build.load(SOURCE).grouped_block_sparse_tile_config
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _BOUND["config"] = fn
+    out = (ctypes.c_int * 5)()
+    if fn(M, block_m, int(dtype == torch.bfloat16), int(weight == "int8"),
+          ctypes.addressof(out)) != 0:
+        raise ValueError(f"no grouped tile for M {M}, block_m {block_m}")
+    return {"m_tile": out[0], "stages": out[1], "warps": out[2],
+            "mma": ("ffma", "mma.sync")[out[3]], "smem_bytes": out[4]}
 
 
 def _function(variant: str, dtype: torch.dtype):
@@ -83,7 +144,7 @@ def _check_common(name: str, x, w, counts, indices, extra: dict,
     if len(shape) != 3:
         raise ValueError(f"w must be an (E, K, N) stack, got {shape}")
     if quant:
-        check_int8_storage(*w[:3], indices, block)
+        bs_kernel.check_int8_storage(*w[:3], indices, block)
     E, K, N = shape
     if K % block or N % block:
         raise ValueError(f"w {shape} does not tile by {block}")
@@ -107,6 +168,14 @@ def _weight(w) -> tuple:
     return tuple(w.shape), [w.data_ptr()]
 
 
+def check_operands_aligned(x, w) -> None:
+    """x and the weight (a dense stack ``w``, or the tiles of an int8
+    ``(tiles, slots, scales, shape)`` tuple) start on 16 bytes, as the
+    grouped kernels' cp.async copies need."""
+    bs_kernel._check_aligned(x=x, **({"tiles": w[0]} if isinstance(w, tuple)
+                                     else {"w": w}))
+
+
 def _grouped(variant: str, x, w, counts, indices, work, block: int,
              block_m: int) -> torch.Tensor:
     _check_common(f"{variant}_block_sparse_matmul", x, w, counts, indices,
@@ -122,8 +191,10 @@ def _grouped(variant: str, x, w, counts, indices, work, block: int,
     if work.shape != (E, M // block_m):
         raise ValueError(f"work {tuple(work.shape)} is not (E, M/block_m) "
                          f"= ({E}, {M // block_m})")
-    if M // TILE_ROWS > 65535 or E > 65535:
-        raise ValueError(f"(M, E) = ({M}, {E}) exceeds the grid's limits")
+    if E * (N // 8) * (M // TILE_ROWS) >= 2 ** 31:
+        raise ValueError(f"(E, M, N) = ({E}, {M}, {N}) exceeds the grid's "
+                         f"limit")
+    check_operands_aligned(x, w)
     y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return y

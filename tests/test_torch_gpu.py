@@ -119,14 +119,9 @@ def test_block_sparse_tile_config_mirrors_the_library(cuda, M, dtype,
         assert got == {k: want[k] for k in got}, (block, got, want)
 
 
-@pytest.mark.parametrize("block", [16, 128])
-@pytest.mark.parametrize("M", [16, 130])
-def test_block_sparse_kernel_f32_bitwise_to_grouped_one_expert(cuda, block,
-                                                               M):
-    """f32 kernel 1 keeps the fmaf order of the tile routine that kernel 6
-    still runs (live K-blocks in plan order, k ascending): one expert of
-    kernel 6 over the same plan gives the same bits, also where kernel 1
-    takes 64-row M-tiles (M 130) and kernel 6 16-row ones."""
+def _kernel1_and_one_expert(cuda, block, M, dtype, panel):
+    """Kernel 1 and kernel 6 with one expert over the same plan and x
+    (M, K), kernel 6 in panels of 16 rows or of all Mp rows (``panel``)."""
     rng = np.random.default_rng(14)
     K, N = 6 * block, 5 * block
     bm = rng.random((K // block, N // block)) < 0.6
@@ -137,16 +132,57 @@ def test_block_sparse_kernel_f32_bitwise_to_grouped_one_expert(cuda, block,
     x = rng.standard_normal((M, K)).astype(np.float32)
     counts, indices = (torch.from_numpy(a).to(cuda)
                        for a in bs_ops.plan_blocks(bm))
-    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    xt, wt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w))
     y1 = bs_kernel.block_sparse_matmul(xt, wt, counts, indices, block)
     Mp = -(-M // 16) * 16                  # kernel 6 takes M % block_m == 0
+    block_m = Mp if panel else 16
     xp = torch.nn.functional.pad(xt, (0, 0, 0, Mp - M))
-    work = torch.ones((1, Mp // 16), dtype=torch.int32, device=cuda)
+    work = torch.ones((1, Mp // block_m), dtype=torch.int32, device=cuda)
     y6 = gbs_kernel.grouped_block_sparse_matmul(
         xp[None].contiguous(), wt[None].contiguous(), counts[None].contiguous(),
-        indices[None].contiguous(), work, block, 16)
+        indices[None].contiguous(), work, block, block_m)
     torch.cuda.synchronize()
-    assert torch.equal(y1, y6[0, :M])
+    return y1, y6[0, :M]
+
+
+@pytest.mark.parametrize("M,block_m", [(16, 16), (48, 48), (64, 64),
+                                       (160, 80), (240, 240), (3072, 16),
+                                       (3072, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weight", ["dense", "int8"])
+def test_grouped_tile_config_mirrors_the_library(cuda, M, block_m, dtype,
+                                                 weight):
+    for block in gbs_kernel.BLOCKS:
+        want = gbs_kernel.tile_config(M, block_m, block, dtype, weight)
+        got = gbs_kernel.library_tile_config(M, block_m, block, dtype,
+                                             weight)
+        assert got == {k: want[k] for k in got}, (block, got, want)
+
+
+@pytest.mark.parametrize("block", [16, 128])
+@pytest.mark.parametrize("M", [16, 130])
+def test_block_sparse_kernel_f32_bitwise_to_grouped_one_expert(cuda, block,
+                                                               M):
+    """f32 kernels 1 and 6 run one warp routine (block_sparse_pipe.cuh)
+    whose fmaf order (live K-blocks in plan order, k ascending) is that of
+    the tile routine kernels 7 and 9 still run: one expert of kernel 6
+    over the same plan gives kernel 1's bits, also where kernel 1 takes
+    64-row M-tiles (M 130) and kernel 6 16-row ones (16-row panels)."""
+    y1, y6 = _kernel1_and_one_expert(cuda, block, M, torch.float32, False)
+    assert torch.equal(y1, y6)
+
+
+@pytest.mark.parametrize("block", [16, 128])
+@pytest.mark.parametrize("M", [16, 130, 240])
+@pytest.mark.parametrize("panel", [False, True])
+def test_block_sparse_kernel_bf16_bitwise_to_grouped_one_expert(cuda, block,
+                                                                M, panel):
+    """bf16 kernels 1 and 6 run the same mma.sync items in the same order
+    (one f32 sum over the k16 items in plan order, rounded once): one
+    expert of kernel 6 gives kernel 1's bits at 16- and 64-row M-tiles,
+    in 16-row panels and in one panel of all rows."""
+    y1, y6 = _kernel1_and_one_expert(cuda, block, M, torch.bfloat16, panel)
+    assert y1.dtype == torch.bfloat16 and torch.equal(y1, y6)
 
 
 def test_sparse_linear_pads_rows_to_the_block(cuda):
@@ -464,14 +500,19 @@ def _close(got, plain, dtype):
 
 @pytest.mark.parametrize("block", [16, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("block_m", [None, 16])
-def test_grouped_kernel_matches_plain(cuda, block, dtype, block_m):
-    x, w, masks, counts, indices = _expert_case(block, 60)
-    E, M = x.shape[:2]
+@pytest.mark.parametrize("M,block_m", [(48, None), (48, 16), (192, 64),
+                                       (160, 80), (240, None)])
+def test_grouped_kernel_matches_plain(cuda, block, dtype, M, block_m):
+    """16-row tiles (panels below 64 rows), 64-row tiles (panels of 64
+    rows and more), a panel's masked last tile (80 and 240 rows), and
+    dead panels beside live ones, in both types."""
+    x, w, masks, counts, indices = _expert_case(block, 60, M=M)
+    E = x.shape[0]
     live = np.zeros((E, M), bool)
     live[1] = True
     live[2, :3] = True                       # one live row: first panel
-    live[3, 40:] = True                      # the last 16-row block only
+    live[2, M // 2] = True                   # and one in a middle panel
+    live[3, M - 8:] = True                   # the last panel only
     xt, wt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w))
     ct, it = torch.from_numpy(counts).to(cuda), torch.from_numpy(
         indices).to(cuda)
@@ -563,8 +604,8 @@ def _moe_layer(cuda, E=8, top_k=2, d=64, d_ff=64, block=16, seed=70):
 
 
 def test_moe_paths_bitwise_equal_on_the_card(cuda):
-    """ragged == grouped == per-expert loop bitwise on the card (the
-    shared tile routine), each path through its own kernel."""
+    """ragged == grouped == per-expert loop bitwise on the card in f32
+    (one fmaf order), each path through its own kernel."""
     spec, params, packed = _moe_layer(cuda)
     x = torch.from_numpy(np.random.default_rng(71).standard_normal(
         (4, 1, 64)).astype(np.float32)).to(cuda)
@@ -612,6 +653,35 @@ def test_moe_loop_path_agrees_with_ragged_in_bf16(cuda):
     assert err <= 2 ** -7 * max(1.0, ragged.float().abs().max().item())
 
 
+@pytest.mark.parametrize("S", [1, 16])
+def test_moe_grouped_path_bitwise_to_loop_in_bf16(cuda, S):
+    """bf16: the grouped path (kernel 6) and the per-expert loop (kernel
+    1) run the same mma.sync items in the same order, so an MoE layer's
+    rows are bitwise equal across them; the ragged path (kernel 7, bf16
+    widened onto FFMA) stays within one bf16 ulp of the largest row."""
+    spec, params, packed = _moe_layer(cuda, seed=79)
+    bp = {"moe": {k: v.bfloat16() for k, v in params.items()}}
+    x = torch.from_numpy(np.random.default_rng(80).standard_normal(
+        (4, S, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
+    out = {}
+    for name, kw, kernel_name in (
+            ("grouped", {"ragged_moe": False}, "grouped_block_sparse"),
+            ("loop", {"ragged_moe": False, "group_experts": False},
+             "block_sparse"),
+            ("ragged", {"ragged_moe": True}, "grouped_block_sparse_ragged")):
+        counters.reset()
+        out[name] = serve_sparse.sparse_apply_moe(bp, spec, x, packed, 0,
+                                                  **kw)
+        torch.cuda.synchronize()
+        want = 3 * (spec.n_experts if name == "loop" else 1)
+        assert counters.snapshot()[kernel_name] == want, name
+    assert out["grouped"].dtype == torch.bfloat16
+    assert torch.equal(out["grouped"], out["loop"])
+    err = (out["grouped"].float() - out["ragged"].float()).abs().max()
+    assert err.item() <= 2 ** -7 * max(
+        1.0, out["ragged"].float().abs().max().item())
+
+
 def test_ragged_switches_to_grouped_above_64_tokens(cuda):
     spec, params, packed = _moe_layer(cuda, seed=72)
     bp = {"moe": params}
@@ -653,6 +723,10 @@ def test_grouped_kernels_raise_on_what_they_do_not_take(cuda):
         (xt, wt, ct, it, work[:, :0], 16, 32),              # work shape
         (xt.transpose(1, 2).contiguous().transpose(1, 2), wt, ct, it, work,
          16, 32),                                           # layout
+        (torch.zeros(xt.numel() + 1, device=cuda)[1:].view(xt.shape), wt,
+         ct, it, work, 16, 32),                             # 16-byte start
+        (xt, torch.zeros(wt.numel() + 1, device=cuda)[1:].view(wt.shape),
+         ct, it, work, 16, 32),                             # 16-byte start
     ]
     for args in bad_grouped:
         with pytest.raises(ValueError):

@@ -30,6 +30,7 @@ from repro_torch.kernels import counters
 from repro_torch.kernels.block_sparse import kernel as bs_kernel
 from repro_torch.kernels.block_sparse import ops as bs_ops
 from repro_torch.kernels.block_sparse import ref as bs_ref
+from repro_torch.kernels.grouped_block_sparse import kernel as gbs_kernel
 from repro_torch.kernels.wanda_metric import kernel as wm_kernel
 from repro_torch.kernels.wanda_metric import ops as wm_ops
 from repro_torch.kernels.wanda_metric import ref as wm_ref
@@ -141,6 +142,102 @@ def test_block_sparse_tile_config(block, M):
             assert 0 < c["smem_bytes"] <= 227 * 1024
     with pytest.raises(ValueError):
         bs_kernel.tile_config(16, 48, torch.float32)
+
+
+def _grouped_tile_rows(M: int, block_m: int, m_tile: int) -> list:
+    """``(first row, end row)`` of every M-tile of a grouped launch, as
+    the kernels cut it (``Tiles`` in csrc/grouped_block_sparse.cu): panel
+    by panel, ``m_tile`` rows each, a panel's last tile cut at its end."""
+    return [(p + t, min(p + t + m_tile, p + block_m))
+            for p in range(0, M, block_m)
+            for t in range(0, block_m, m_tile)]
+
+
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("M,block_m", [(16, 16), (48, 16), (48, 48),
+                                       (64, 64), (160, 80), (192, 64),
+                                       (240, 240), (1024, 1024),
+                                       (3072, 16), (3072, 128)])
+def test_grouped_block_sparse_tile_config(M, block_m, block):
+    """The tile rule of kernels 6 and 8, readable without a card: kernel
+    1's rule applied to a panel of block_m rows (16-row M-tiles below 64
+    rows, 64-row ones from 64; one warp a slice), but for bf16 at 64-row
+    tiles a block of four warps sharing one x stage; each panel cut into
+    tiles that end at the panel's end, so no tile holds rows of two
+    panels (a live and a dead one); the ring and its thread block within
+    the H100's 227 KB, the shared-x block's merge of a K of 16384 too."""
+    keys = ("stages", "warps", "mma", "col_width", "slices")
+    for dtype in bs_kernel.DTYPES:
+        for weight in ("dense", "int8"):
+            c = gbs_kernel.tile_config(M, block_m, block, dtype, weight)
+            assert c["m_tile"] == (16 if block_m < 64 else 64)
+            k1 = bs_kernel.tile_config(block_m, block, dtype, weight)
+            shared = dtype == torch.bfloat16 and block_m >= 64
+            assert c["shared_x"] == shared
+            if shared:
+                assert (c["warps"], c["stages"], c["col_width"]) == (
+                    gbs_kernel.SHARED_X_WARPS, gbs_kernel.SHARED_X_STAGES, 16)
+                assert c["smem_bytes"] < k1["smem_bytes"]
+                merge = gbs_kernel.MERGE_BYTES_PER_KBLOCK * 16384 // block
+                assert c["smem_bytes"] + merge + 16 <= 227 * 1024
+            else:
+                assert {k: c[k] for k in keys} == {k: k1[k] for k in keys}
+                assert c["smem_bytes"] == k1["smem_bytes"]
+            assert c["mma"] == ("mma.sync" if dtype == torch.bfloat16
+                                else "ffma")
+            assert 0 < c["smem_bytes"] <= 227 * 1024
+            assert c["panels"] == M // block_m
+            rows = _grouped_tile_rows(M, block_m, c["m_tile"])
+            assert len(rows) == c["panels"] * c["per_panel"]
+            covered = np.zeros(M, int)
+            for m0, m1 in rows:
+                assert 0 < m1 - m0 <= c["m_tile"]
+                assert m0 // block_m == (m1 - 1) // block_m, \
+                    "a tile crosses a panel"
+                covered[m0:m1] += 1
+            assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("M,block_m,block,dtype,weight", [
+    (48, 24, 16, torch.float32, "dense"),     # block_m not a multiple of 16
+    (48, 32, 16, torch.float32, "dense"),     # block_m does not divide M
+    (0, 16, 16, torch.float32, "dense"),      # no rows
+    (48, 0, 16, torch.float32, "dense"),      # no panel
+    (48, 16, 48, torch.float32, "dense"),     # block
+    (48, 16, 16, torch.float16, "dense"),     # dtype
+    (48, 16, 16, torch.float32, "int4")])     # weight
+def test_grouped_block_sparse_tile_config_refuses(M, block_m, block, dtype,
+                                                  weight):
+    with pytest.raises(ValueError):
+        gbs_kernel.tile_config(M, block_m, block, dtype, weight)
+
+
+def _off_by_one(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous view of ``t``'s shape that starts one element past
+    the start of its storage."""
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype)
+    return flat[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("operand", ["x", "w", "tiles"])
+def test_grouped_kernels_refuse_views_off_16_bytes(operand):
+    """The grouped kernels copy 16-byte pieces with cp.async: x, the dense
+    stack and the int8 tiles must each start on 16 bytes, and a view one
+    element past its storage's start is refused before any launch."""
+    x = torch.zeros((2, 16, 32))
+    w = torch.zeros((2, 32, 32))
+    tiles = torch.zeros((3, 16, 16), dtype=torch.int8)
+    quant = (tiles, None, None, (2, 32, 32))
+    gbs_kernel.check_operands_aligned(x, w)
+    gbs_kernel.check_operands_aligned(x, quant)
+    if operand == "x":
+        args = (_off_by_one(x), w)
+    elif operand == "w":
+        args = (x, _off_by_one(w))
+    else:
+        args = (x, (_off_by_one(tiles), *quant[1:]))
+    with pytest.raises(ValueError, match="16 bytes"):
+        gbs_kernel.check_operands_aligned(*args)
 
 
 def _wanda_case(K, N, seed):
