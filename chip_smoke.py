@@ -36,7 +36,7 @@ Phases, each printing one line of its own:
                 shapes of the paths above, with times, bounds and a
                 library yardstick; kernel 1 also at a 512-row prefill,
                 and in f32 held bitwise to kernel 6 with one expert
-                (one warp routine; kernels 7 and 9 keep its fmaf order);
+                (one warp routine, which kernels 5-9 run too);
                 kernel 3 also at the
                 paged trace's 8 rows of 256, the longest row alone and
                 gemma-2b's and nemotron-4-340b's heads, each case run
@@ -61,13 +61,16 @@ Phases, each printing one line of its own:
                 ragged decode), grouped only, the per-expert loop through
                 kernel 1, dense — with exact launch counts per run and
                 tokens held to dense; layer 0's MoE output bitwise equal
-                across ragged, grouped and loop; 8 requests on the
+                across ragged, grouped and loop (f32, and the decode
+                batch in bf16); 8 requests on the
                 continuous engine's paged pool through the paged kernel,
                 held to a dense contiguous run; a decode trace, sparse
                 and dense; kernels 6 and 7 against their plain versions
                 at layer 0's gate and down stacks (kernel 6 at the 4 x 32
                 prefill's 16 slot rows and at a 3072-token prompt's 240,
                 with its host time a call and its first design's time;
+                kernel 7 at the 4-token decode tick and at a 64-token
+                one, the most the ragged route takes, likewise timed;
                 kernel 6 with one expert held bitwise to kernel 1 in both
                 types at both heights);
    moe bf16 prefill — one 3072-token prompt, batch 1, through the static
@@ -95,7 +98,8 @@ Phases, each printing one line of its own:
                 requests on the paged pool with int8 and "none", tokens
                 equal; mirrored tok/s and decode traces as for llama;
                 kernels 8 and 9 at layer 0's gate and down stacks
-                (kernel 8 at 16 and 240 slot rows, as kernel 6);
+                (kernel 8 at 16 and 240 slot rows, as kernel 6; kernel 9
+                at 4 and 64 tokens, as kernel 7);
 10. ssm       — mamba2-1.3b at full width and depth (48 layers, random
                 weights from seed 0), after the MoE tensors are freed:
                 ``MosaicPipeline`` on ``recipes/golden-smoke.json`` with
@@ -179,7 +183,7 @@ FIRST_DESIGN_QUANT_MS = {
     ("layer0.gate", 16, 16, "bfloat16"): 0.2016,
 }
 # Kernels 6 and 8 of the first design (one 256-thread block per 16-row
-# tile through block_sparse_tile.cuh, scalar loads, FFMA in both types),
+# tile through a shared tile routine, scalar loads, FFMA in both types),
 # ms at each grouped case of phase_moe_kernels: M 16 from this script's
 # proof run at commit 67e32a9, M 240 from its _grouped_case driving
 # commit 67e32a9's package; both on an NVIDIA H100 80GB HBM3 at 700.00 W.
@@ -203,6 +207,33 @@ FIRST_DESIGN_QUANT_GROUPED_MS = {
     ("layer0.gate", 240, "bfloat16"): 3.5766,
     ("layer0.down", 240, "float32"): 8.2296,
     ("layer0.down", 240, "bfloat16"): 8.1873,
+}
+# Kernels 7 and 9 of the first design (one 256-thread block per 16-row
+# tile through a shared tile routine, scalar loads, FFMA in both types),
+# ms at each ragged case of phase_moe_kernels: this script's
+# _ragged_case driving commit 409a6c3's package, the later of its two
+# runs in one call (parent, change, change, parent; the earlier within
+# 0.7% but for its first case, 0.1596), on an NVIDIA H100 80GB HBM3 at
+# 700.00 W. Keys (case, tokens, dtype).
+FIRST_DESIGN_RAGGED_MS = {
+    ("layer0.gate", 4, "float32"): 0.1168,
+    ("layer0.gate", 64, "float32"): 0.3107,
+    ("layer0.gate", 4, "bfloat16"): 0.1048,
+    ("layer0.gate", 64, "bfloat16"): 0.2879,
+    ("layer0.down", 4, "float32"): 0.1646,
+    ("layer0.down", 64, "float32"): 0.6478,
+    ("layer0.down", 4, "bfloat16"): 0.1449,
+    ("layer0.down", 64, "bfloat16"): 0.5881,
+}
+FIRST_DESIGN_QUANT_RAGGED_MS = {
+    ("layer0.gate", 4, "float32"): 0.1020,
+    ("layer0.gate", 64, "float32"): 0.2727,
+    ("layer0.gate", 4, "bfloat16"): 0.1014,
+    ("layer0.gate", 64, "bfloat16"): 0.2743,
+    ("layer0.down", 4, "float32"): 0.1426,
+    ("layer0.down", 64, "float32"): 0.5693,
+    ("layer0.down", 4, "bfloat16"): 0.1372,
+    ("layer0.down", 64, "bfloat16"): 0.5620,
 }
 # Kernel 3 of the first design (one thread block per (row, kv head)
 # walking the whole row, scalar loads, one thread a head's softmax), ms at
@@ -453,6 +484,18 @@ def phase_build(device) -> dict:
     if report and len(out["grouped_kernels"]) != 32:
         raise AssertionError(f"kernel 6/8 instantiations: "
                              f"{sorted(out['grouped_kernels'])}")
+    # kernels 7 and 9: one warp a (tile, slice) at 16-row tiles
+    out["ragged_kernels"] = {}
+    for name, n in out["per_source"][g_kernel.SOURCE]["registers"].items():
+        m = re.search(r"\d((?:quant_)?ragged_kernel)I(f|13__nv_bfloat16)"
+                      r"Li(\d+)EE", name)
+        if m:
+            dt = "f32" if m.group(2) == "f" else "bf16"
+            out["ragged_kernels"][f"{m.group(1)}<{dt},{m.group(3)}>"] = {
+                "registers": n, "spill_bytes": spills.get(name, 0)}
+    if report and len(out["ragged_kernels"]) != 16:
+        raise AssertionError(f"kernel 7/9 instantiations: "
+                             f"{sorted(out['ragged_kernels'])}")
     # mangled names: ...<len>ssd_<stage>_kernelI<dtype>[Li<PS>E]E...
     out["kernel10_registers"] = {}
     for name, n in out["per_source"][ssd_kernel.SOURCE]["registers"].items():
@@ -1596,10 +1639,14 @@ def moe_static_runs(art, device, ways=MOE_WAYS) -> dict:
 
 def moe_layer_bitwise(art, device, quants=(None,)) -> dict:
     """Layer 0's MoE feed-forward on one decode batch and one prefill
-    batch of random hidden states: ragged, grouped and loop rows must be
-    bitwise equal (one fmaf order in f32), under each serve-time
-    ``quant`` of ``quants`` (int8 plans: "int8" and "none" too). These
-    launches are checks, not part of a counted run."""
+    batch of random hidden states in f32, and the decode batch again in
+    bf16: ragged, grouped and loop rows must be bitwise equal (one warp
+    routine: one fmaf order in f32, the same mma.sync items in bf16),
+    under each serve-time ``quant`` of ``quants`` (int8 plans: "int8" and
+    "none" too). These launches are checks, not part of a counted run.
+    The f32 rows are held to the dense layer; the bf16 rows' distance
+    from the dense bf16 layer (which rounds at other places) is
+    recorded."""
     import torch
     from repro_torch.models.moe import apply_moe
     from repro_torch.serve.sparse import sparse_apply_moe
@@ -1607,9 +1654,11 @@ def moe_layer_bitwise(art, device, quants=(None,)) -> dict:
     bp = art.params["blocks"][0]
     gen = torch.Generator(device=device).manual_seed(5)
     out = {}
-    for label, S in (("decode", 1), ("prefill", PROMPT_LEN)):
+    for label, S, dtype in (("decode", 1, torch.float32),
+                            ("prefill", PROMPT_LEN, torch.float32),
+                            ("decode/bf16", 1, torch.bfloat16)):
         x = torch.randn((BATCH, S, art.cfg.d_model), generator=gen,
-                        device=device)
+                        device=device).to(dtype)
         ys = {f"{name}/{q}" if q else name:
               sparse_apply_moe(bp, spec, x, art.packed, 0, quant=q, **kw)
               for q in quants
@@ -1620,13 +1669,13 @@ def moe_layer_bitwise(art, device, quants=(None,)) -> dict:
         dense, _ = apply_moe(bp["moe"], spec, x)
         first, y0 = next(iter(ys.items()))
         for name, y in ys.items():
-            if not torch.equal(y0, y):
+            if y.dtype != dtype or not torch.equal(y0, y):
                 raise AssertionError(
                     f"MoE layer {label}: {first} and {name} rows differ by "
-                    f"{float((y0 - y).abs().max())}")
-        err = float((y0 - dense).abs().max())
-        if not err <= KERNEL_RTOL["float32"] * max(
-                float(dense.abs().max()), 1.0):
+                    f"{float((y0.float() - y.float()).abs().max())}")
+        err = float((y0.float() - dense.float()).abs().max())
+        tol = KERNEL_RTOL["float32"] * max(float(dense.abs().max()), 1.0)
+        if dtype == torch.float32 and not err <= tol:
             raise AssertionError(f"MoE layer {label}: sparse vs dense "
                                  f"{err}")
         out[label] = {"bitwise_equal": sorted(ys),
@@ -1930,11 +1979,12 @@ def _one_expert_bitwise(w, plan, dtype, M: int, gen) -> dict:
 
 
 def _ragged_case(w, plan, spec, dtype, gen, label: str,
-                 quant: bool = False) -> dict:
-    """Kernel 7 at an MoE decode tick: BATCH tokens routed top-k, packed
-    into 16-row per-expert tiles by the model's own dispatch builder.
-    With ``quant``, kernel 9 over the int8 plan, held bitwise to kernel 7
-    over ``w``."""
+                 quant: bool = False, tokens: int = BATCH) -> dict:
+    """Kernel 7 at an MoE decode tick of ``tokens`` one-token sequences
+    (the engine's BATCH, or RAGGED_TOKENS_MAX, the most the ragged route
+    takes) routed top-k, packed into 16-row per-expert tiles by the
+    model's own ``build_ragged_dispatch``. With ``quant``, kernel 9 over
+    the int8 plan, held bitwise to kernel 7 over ``w``."""
     import torch
     from repro_torch.kernels.grouped_block_sparse import kernel, ops, ref
     from repro_torch.models.moe import (build_ragged_dispatch, capacity,
@@ -1943,10 +1993,10 @@ def _ragged_case(w, plan, spec, dtype, gen, label: str,
     E, K, N = w.shape
     b = plan.block
     C = capacity(spec, 1)
-    ids, _, keep, pos = _moe_routing(E, spec.top_k, BATCH, 1, C, gen, dev)
-    m_max = ragged_rows_bound(E, BATCH * spec.top_k)
+    ids, _, keep, pos = _moe_routing(E, spec.top_k, tokens, 1, C, gen, dev)
+    m_max = ragged_rows_bound(E, tokens * spec.top_k)
     dest, tile_expert, _ = build_ragged_dispatch(ids, keep, pos, E, m_max)
-    src = torch.randn((BATCH * spec.top_k, K), generator=gen, device=dev)
+    src = torch.randn((tokens * spec.top_k, K), generator=gen, device=dev)
     xp = torch.zeros((m_max + 1, K), device=dev).index_add_(
         0, dest.reshape(-1), src)[:m_max].to(dtype).contiguous()
     w = w.to(dtype).contiguous()
@@ -1991,12 +2041,16 @@ def _ragged_case(w, plan, spec, dtype, gen, label: str,
     b_ms, b_by = bound_ms(n_bytes, 2.0 * 16 * tile_tiles * b * b, dname)
     x_tiles = xp.reshape(-1, 16, K)
     w_tiles = w[te.clamp(min=0)]
-    return {
+    first = (FIRST_DESIGN_QUANT_RAGGED_MS if quant
+             else FIRST_DESIGN_RAGGED_MS).get((label, tokens, dname))
+    rec = {
         "case": label, "E": E, "M": m_max, "K": K, "N": N, "block": b,
+        "tokens": tokens, "assignments": tokens * spec.top_k,
         "tiles": te.numel(), "live_tiles": int(live.sum()),
         "experts_computed": int(experts.numel()), "dtype": dname,
         "quant": quant, "max_abs_err": err, "tol": tol,
-        "ms": time_ms(launch),
+        "ms": time_ms(launch), "host_us": host_us(launch),
+        "ms_first_design": first,
         "plain_ms": time_ms(lambda: ref.ragged_block_sparse_matmul_ref(
             xp, w, tile_expert, 16, masks, b, b), iters=5),
         "library_ms": time_ms(lambda: torch.bmm(x_tiles, w_tiles)),
@@ -2004,6 +2058,8 @@ def _ragged_case(w, plan, spec, dtype, gen, label: str,
                    "(gather not timed)",
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    rec["speedup_vs_first_design"] = first / rec["ms"] if first else None
+    return rec
 
 
 def phase_moe_kernels(moe: dict, device, quant: bool = False) -> tuple:
@@ -2011,10 +2067,14 @@ def phase_moe_kernels(moe: dict, device, quant: bool = False) -> tuple:
     versions at the MoE path's shapes: layer 0's pruned gate and down
     stacks, f32 and bf16; the grouped kernel at the 4 x 32 prefill (M 16)
     and at a LONG_PROMPT-token prompt (one panel of M 240 rows, 64-row
-    M-tiles). Without ``quant``, also kernel 6 with one expert held
-    bitwise to kernel 1 at both M, in both types (logged under
-    ``one_expert``)."""
+    M-tiles); the ragged kernel at the BATCH-token decode tick and at a
+    tick of RAGGED_TOKENS_MAX tokens. Without ``quant``, also kernel 6
+    with one expert held bitwise to kernel 1 at both M, in both types
+    (logged under ``one_expert``). The phase's seconds go to ``moe``
+    (``kernels_s``)."""
     import torch
+    from repro_torch.serve.sparse import RAGGED_TOKENS_MAX
+    t0 = time.perf_counter()
     art = moe["art"]
     spec = art.cfg.layer(0).ffn
     gen = torch.Generator(device=device).manual_seed(6)
@@ -2028,8 +2088,10 @@ def phase_moe_kernels(moe: dict, device, quant: bool = False) -> tuple:
                                   f"layer0.{name}", quant, groups, tokens)
                 c["tile"] = _grouped_tile_record(c, dtype)
                 grouped.append(c)
-            ragged.append(_ragged_case(w, plan, spec, dtype, gen,
-                                       f"layer0.{name}", quant))
+            for tokens in (BATCH, RAGGED_TOKENS_MAX):
+                ragged.append(_ragged_case(w, plan, spec, dtype, gen,
+                                           f"layer0.{name}", quant,
+                                           tokens))
     q = "quant_" if quant else ""
     for c in grouped:
         log("kernels", kernel=f"{q}grouped_block_sparse_matmul", **c)
@@ -2043,6 +2105,7 @@ def phase_moe_kernels(moe: dict, device, quant: bool = False) -> tuple:
             for M in sorted({c["M"] for c in grouped})]
         log("kernels", kernel="grouped_block_sparse_matmul",
             one_expert=moe["one_expert"])
+    moe["kernels_s"] = time.perf_counter() - t0
     return grouped, ragged
 
 
@@ -2850,10 +2913,14 @@ def kernel_table(main: dict, cont: dict, moe: dict, quant: dict,
     wm = cases["wanda"][0]
     pa = next(c for c in cases["paged"] if c["dtype"] == "float32")
     fa = next(c for c in cases["flash"] if c["dtype"] == "float32")
-    gb, rg, qgb, qrg = (next(c for c in cases[k] if c["case"] == "layer0.gate"
-                             and c["dtype"] == "float32")
-                        for k in ("grouped", "ragged", "quant_grouped",
-                                  "quant_ragged"))
+
+    def gate_case(kind: str, key: str, value: int) -> dict:
+        return next(c for c in cases[kind] if c["case"] == "layer0.gate"
+                    and c["dtype"] == "float32" and c[key] == value)
+
+    gb, qgb = (gate_case(k, "M", 16) for k in ("grouped", "quant_grouped"))
+    rg, qrg = (gate_case(k, "tokens", BATCH)
+               for k in ("ragged", "quant_ragged"))
     qbs = next(c for c in quant["cases"] if c["dtype"] == "float32")
     moe_launches = moe["static"]["default"]["launches"]
     q_launches = quant["static"]["int8"]["launches"]
@@ -2959,6 +3026,8 @@ def main() -> int:
     hybrid_info = phase_hybrid(device, gpu)
     hybrid_info["phase_s"] = time.perf_counter() - t_hybrid
     log("phases", ssm_s=ssm_info["phase_s"],
+        moe_kernels_s=moe_info["kernels_s"],
+        moe_quant_kernels_s=moe_quant_info["kernels_s"],
         moe_bf16_prefill_s=moe_bf16_info["phase_s"],
         hybrid_s=hybrid_info["phase_s"], attention_kernels_s=attention_s,
         before_ssm_s=t_ssm - t_start)

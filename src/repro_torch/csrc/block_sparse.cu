@@ -20,14 +20,13 @@
 // block b (16, 32, 64 or 128) is both the K-block and the N-block.
 //
 // Numerics: f32 is plain FFMA (no TF32) with each output one fmaf chain
-// over the live K-blocks in plan order, k ascending: bitwise the order of
-// block_sparse_tile.cuh, which the ragged kernels (7, 9) keep, so a row
-// is bitwise equal across kernel 1 and kernels 6-9 in f32. bf16 runs on
-// the tensor cores (mma.sync m16n8k16, f32 accumulation across K-blocks
-// in plan order, one rounding at the end), as the grouped kernels (6, 8)
-// do on the same routine, so kernel 6 with one expert is bitwise kernel 1
-// in bf16 too; it is not bitwise equal to kernels 7 and 9, which widen
-// bf16 onto the FFMA units. Kernel 5
+// over the live K-blocks in plan order, k ascending. bf16 runs on the
+// tensor cores (mma.sync m16n8k16, f32 accumulation across K-blocks in
+// plan order, one rounding at the end). The MoE kernels 6-9
+// (grouped_block_sparse.cu) run the same routine, so a row is bitwise
+// equal across kernel 1 and kernels 6-9 in both types: kernel 6 with one
+// expert is kernel 1, and an MoE layer's ragged, grouped and per-expert
+// loop rows are one another's. Kernel 5
 // dequantises each int8 sub-tile into the tile the dense code reads
 // (float(q) * 2^e, exact in f32 and bf16), so it is bitwise equal to
 // kernel 1 over the dequantised weight in both types.

@@ -1,7 +1,8 @@
 // The warp routine of the block-sparse matmuls: kernels 1 and 5
-// (block_sparse.cu) and the grouped kernels 6 and 8
-// (grouped_block_sparse.cu, which point it at one expert's x, weight and
-// plan row). One warp computes one (BM-row M-tile, CW-column slice)
+// (block_sparse.cu), the grouped kernels 6 and 8 and the ragged kernels 7
+// and 9 (grouped_block_sparse.cu, which point it at one expert's x,
+// weight and plan row, or at a 16-row tile of the packed buffer and its
+// expert's). One warp computes one (BM-row M-tile, CW-column slice)
 // output tile y[r, c] = sum_k x[r, k] * w[k, c] over the live K-blocks
 // of the slice's N-block column, in plan order, through its own cp.async
 // ring of S stages. Warps never wait on each other: a thread block is
@@ -22,23 +23,26 @@
 // tr + TR i and columns 4 tc .. 4 tc + 3 (16 x 8 slices: 16 x 2 lanes,
 // one row each; 64 x 16 slices: 8 x 4 lanes, 8 rows each); x and w come
 // from shared memory as float4. Each output is one chain of fmaf over the
-// items in order, k ascending within an item, starting from 0: the order
-// of block_sparse_tile.cuh, so the result is bitwise the ragged
-// kernels' (7 and 9) at any M-tile. Never split along K in f32.
+// items in order, k ascending within an item, starting from 0, so a row
+// is bitwise the same at any M-tile and row position: kernels 1 and 5-9
+// give one token the same bits. Never split along K in f32.
 //
 // bf16 (tensor cores): each item is one k16 step of
 // mma.sync.m16n8k16.row.col (bf16 in, f32 accumulate): ldmatrix.x4 for
 // each 16-row A fragment, ldmatrix.x4.trans for the 16 x 16 weight tile
 // (two n8 fragments). The f32 sums run over the items in plan order and
 // are rounded to bf16 once at the end; inside a k16 step the order is
-// the tensor core's.
+// the tensor core's, the same for every row of the tile, so in bf16 too
+// the MoE paths (ragged, grouped, per-expert loop) give one token the
+// same bits.
 //
-// int8 kept tiles (kernels 5 and 8): the 16-byte rows of the item's int8
+// int8 kept tiles (kernels 5, 8 and 9): the 16-byte rows of the item's int8
 // sub-tile land by cp.async (one a lane) with the step's scale beside
 // them; the warp dequantises its columns into one f32 or bf16 tile as
 // float(q) * 2^e (exact in f32, and in bf16, whose 8 significant bits
 // hold |q| <= 127) and runs the dense code on it: the weights multiplied
-// are bitwise those of kernel 1 (kernel 6) over the dequantised weight.
+// are bitwise those of kernel 1 (kernels 6, 7) over the dequantised
+// weight.
 #pragma once
 
 #include <cstdint>

@@ -13,44 +13,44 @@
 // (work) or tile map (tile_expert) are scalar-prefetched, the grid's last
 // axis walks max_nnz steps in order, and the index maps of dead steps,
 // dead (expert, M-block) pairs and dead tiles are clamped so their copies
-// are elided. None of that has a Hopper counterpart: here each warp (or
-// thread block) reads its own plan row and occupancy entry, a dead tile
-// writes zeros and returns, a live one walks only its live K-blocks.
+// are elided. None of that has a Hopper counterpart: here each warp (or,
+// for bf16 at 64-row tiles, each thread block) reads its own plan row and
+// occupancy entry, a dead tile writes zeros and returns, a live one walks
+// only its live K-blocks. All four kernels run the warp routine of
+// kernels 1 and 5 (block_sparse_pipe.cuh).
 //
 //   grouped: y[e] = x[e] @ w[e]. work (E, M/block_m) marks the (expert,
-//            panel) pairs that hold a routed row. Kernels 6 and 8 run on
-//            the warp routine of kernels 1 and 5 (block_sparse_pipe.cuh):
-//            one warp owns one (expert, plan column, CW-column slice,
-//            M-tile); M-tiles never cross a panel, so a tile is wholly
-//            live or wholly dead.
-//   ragged:  grid (N/b, M/16). y[t] = x[t] @ w[tile_expert[t]] per 16-row
-//            tile t; tile_expert[t] < 0 (padding past the packed total)
-//            writes zeros. Kernels 7 and 9 still run the first design's
-//            tile routine (block_sparse_tile.cuh).
+//            panel) pairs that hold a routed row. One warp owns one
+//            (expert, plan column, CW-column slice, M-tile); M-tiles
+//            never cross a panel, so a tile is wholly live or wholly
+//            dead.
+//   ragged:  y[t] = x[t] @ w[tile_expert[t]] per 16-row tile t of the
+//            packed buffer; tile_expert[t] < 0 or >= E (padding past the
+//            packed total) writes zeros. One warp owns one (tile, plan
+//            column, CW-column slice) at a 16-row M-tile, the grid one-
+//            dimensional over warps.
 //
 // Layouts: x (E, M, K) or (M, K), w (E, K, N), y like x with N columns,
 // all row-major and contiguous, x, w and the int8 tiles each starting on
-// 16 bytes (the grouped kernels' cp.async copies); counts (E, N/b) int32;
-// indices (E, N/b, max_nnz) int32 K-block ids, edge-padded, ascending
-// within a row; work (E, M/block_m) int32; tile_expert (M/16,) int32.
-// The int8 kernels take, instead of w, tiles (T, b, b) int8 (every
-// expert's kept tiles concatenated in plan order), slots (E, N/b,
-// max_nnz) int32 holding absolute storage rows and scales (E, N/b,
-// max_nnz) f32 pow2 factors. The plan block b is both the K-block and the
-// N-block, one of {16, 32, 64, 128}.
+// 16 bytes (the cp.async copies); counts (E, N/b) int32; indices (E, N/b,
+// max_nnz) int32 K-block ids, edge-padded, ascending within a row; work
+// (E, M/block_m) int32; tile_expert (M/16,) int32. The int8 kernels take,
+// instead of w, tiles (T, b, b) int8 (every expert's kept tiles
+// concatenated in plan order), slots (E, N/b, max_nnz) int32 holding
+// absolute storage rows and scales (E, N/b, max_nnz) f32 pow2 factors.
+// The plan block b is both the K-block and the N-block, one of {16, 32,
+// 64, 128}.
 //
 // Numerics. f32: every output is one fmaf chain over the live K-blocks in
-// plan order, k ascending, from 0 (FFMA, no TF32): the order of kernel 1
-// and of the tile routine, so a token's f32 row is bitwise equal whether
-// it runs through the ragged kernel, the grouped kernel or kernel 1 on
-// its expert alone. bf16: kernels 6 and 8 run kernel 1's mma.sync items
-// in the same order (each output one f32 sum over the k16 items in plan
-// order, rounded to bf16 once), so kernel 6 with one expert is bitwise
-// kernel 1 in bf16 too; the ragged kernels widen bf16 onto FFMA, so a
-// bf16 row of the grouped and the ragged path agree within one bf16 ulp,
-// not bitwise. The int8 kernels dequantise on load (float(q) * scale,
-// exact in f32 and bf16) and equal kernels 6 and 7 over the dequantised
-// stack, bitwise, in both types.
+// plan order, k ascending, from 0 (FFMA, no TF32): the order of kernel 1,
+// so a token's f32 row is bitwise equal whether it runs through the
+// ragged kernel, the grouped kernel or kernel 1 on its expert alone.
+// bf16: all four kernels run kernel 1's mma.sync items in the same order
+// (each output one f32 sum over the k16 items in plan order, rounded to
+// bf16 once), so a token's bf16 row is bitwise equal across the ragged,
+// grouped and per-expert loop paths too. The int8 kernels dequantise on
+// load (float(q) * scale, exact in f32 and bf16) and equal kernels 6 and
+// 7 over the dequantised stack, bitwise, in both types.
 //
 // What bounds kernels 6 and 8 on the H100 (qwen3-moe-30b-a3b's pruned
 // layer-0 stacks, 128 experts):
@@ -68,7 +68,23 @@
 //   block an item: some 2 GB on the down stack, 3.9 TB/s at its measured
 //   time), not the bytes from memory: the down stack sits at 5.2x its
 //   bound, 3.4x torch.bmm.
-// The first design's five causes of lost time, and their repair here:
+// Kernels 7 and 9 (the ragged kernels; replace the TPU kernels at
+// src/repro/kernels/grouped_block_sparse/kernel.py:304 / :341 and :235 /
+// :263) serve MoE decode ticks of up to 64 tokens: a tile holds one to 16
+// routed rows of one expert, so they are bound by bytes: each live
+// expert's live weight tiles once (as above), the packed x rows and the
+// output. The FLOPs are far below either peak; what sets the time is the
+// latency of each slice's serial walk over scattered weight rows. Their
+// design takes the warp routine as kernels 6 and 8 do: a warp a (tile,
+// slice) with its own cp.async ring (8 items deep, 12 for int8), the
+// plan row shuffled out one item ahead, mma.sync in bf16, one 16-byte
+// copy per int8 tile row; warps never wait on each other. A tile's
+// slices sit in neighbouring warps, and consecutive tiles of one expert
+// follow each other, so an expert with more than 16 routed rows reads
+// its weight tiles from L2 on its second tile.
+// The first design's five causes of lost time (it ran one 256-thread
+// block per 16 x b tile through a shared tile routine), and their repair
+// here:
 // 1. scalar loads, two shared loads per FMA, a barrier pair per 32-row K
 //    chunk, nothing overlapped: 16-byte cp.async rings 4-12 items deep,
 //    the plan shuffled out one item ahead, register tiles read as float4
@@ -93,18 +109,15 @@
 // warp a slice (the shared stage not timed here; kernel 1 found it
 // slower for f32 at 64-row tiles).
 #include "block_sparse_pipe.cuh"
-#include "block_sparse_tile.cuh"
 
 namespace {
 
 namespace bsp = block_sparse_pipe;
-using block_sparse_tile::DenseWeight;
-using block_sparse_tile::Int8Tiles;
-using block_sparse_tile::kRows;
-using block_sparse_tile::kThreads;
 using bsp::Config;
 using bsp::kKC;
 using bsp::kMaxWarps;
+
+constexpr int kRows = 16;   // rows of a ragged tile; panels are multiples
 
 // ------------------------------------------------ grouped (kernels 6, 8)
 
@@ -441,52 +454,69 @@ grouped_shared_x_kernel(const __nv_bfloat16* __restrict__ x,
 
 // ------------------------------------------------- ragged (kernels 7, 9)
 
-// The weight source of a column whose stacked plan row is `plan`: the
-// dense (E, K, N) stack `w` (kernel 7: DenseStack, no state), or the
-// int8 storage with absolute slots (kernel 9: w is nullptr).
-struct DenseStack {
-  static constexpr bool kDense = true;
-
-  __device__ __forceinline__ DenseWeight at(size_t /*plan*/,
-                                            int /*max_nnz*/) const {
-    return {};
+// warp g of the grid -> (tile t, column n, slice): the slice fastest and
+// the tile outermost, so one tile's slices are neighbours and
+// consecutive tiles of one expert follow each other. Every tile is 16
+// rows of one expert (or dead), so the warp routine runs it with the
+// tile's end as its row bound.
+template <typename T, int BN, bool kInt8>
+__device__ __forceinline__ void ragged_run(
+    const T* __restrict__ x, const T* __restrict__ w,
+    const int8_t* __restrict__ tiles, const int* __restrict__ counts,
+    const int* __restrict__ indices, const int* __restrict__ slots,
+    const float* __restrict__ scales, const int* __restrict__ tile_expert,
+    T* __restrict__ y, int M, int K, int N, int E, int max_nnz) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using L = bsp::Smem<T, kRows, kInt8>;
+  constexpr int CW = L::kCW;
+  constexpr int kSlices = BN / CW;
+  const int warp = threadIdx.x >> 5;
+  const long g = static_cast<long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  const int per_tile = N / CW;
+  if (g >= static_cast<long>(per_tile) * (M / kRows)) return;
+  const int t = static_cast<int>(g / per_tile);
+  const int r = static_cast<int>(g % per_tile);
+  const int n = r / kSlices;
+  const int sub = (r % kSlices) * CW;
+  const int col0 = n * BN + sub;
+  const int m0 = t * kRows;
+  const int e = __ldg(tile_expert + t);
+  if (e < 0 || e >= E) {
+    zero_slice<T, kRows, CW>(y, m0, m0 + kRows, N, col0);
+    return;
   }
-};
+  const size_t plan = static_cast<size_t>(e) * (N / BN) + n;
+  const size_t row = plan * max_nnz;
+  bsp::warp_tile<T, BN, kRows, kInt8>(
+      x, kInt8 ? nullptr : w + static_cast<size_t>(e) * K * N, tiles,
+      indices + row, kInt8 ? slots + row : nullptr,
+      kInt8 ? scales + row : nullptr, __ldg(counts + plan), y, m0,
+      m0 + kRows, K, N, col0, sub, smem + warp * L::kWarp);
+}
 
-template <int BN>
-struct Int8Stack {
-  static constexpr bool kDense = false;
-  const int8_t* tiles;
-  const int* slots;
-  const float* scales;
-
-  __device__ __forceinline__ Int8Tiles<BN> at(size_t plan,
-                                              int max_nnz) const {
-    const size_t row = plan * max_nnz;
-    return {tiles, slots + row, scales + row};
-  }
-};
-
-template <typename T, int BN, typename S>
-__global__ void __launch_bounds__(kThreads)
-ragged_kernel(const T* __restrict__ x, const T* __restrict__ w, S ws,
+template <typename T, int BN>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+ragged_kernel(const T* __restrict__ x, const T* __restrict__ w,
               const int* __restrict__ counts,
               const int* __restrict__ indices,
               const int* __restrict__ tile_expert, T* __restrict__ y, int M,
               int K, int N, int E, int max_nnz) {
-  const int n = blockIdx.x;
-  const int t = blockIdx.y;
-  const size_t col0 = static_cast<size_t>(n) * BN;
-  const int e = tile_expert[t];
-  if (e < 0 || e >= E) {
-    block_sparse_tile::zero_tile<T, BN>(y, t * kRows, M, N, col0);
-    return;
-  }
-  const size_t plan = static_cast<size_t>(e) * (N / BN) + n;
-  block_sparse_tile::tile<T, BN>(
-      x, S::kDense ? w + static_cast<size_t>(e) * K * N : nullptr,
-      ws.at(plan, max_nnz), indices + plan * max_nnz, counts[plan], y,
-      t * kRows, M, K, N, col0);
+  ragged_run<T, BN, false>(x, w, nullptr, counts, indices, nullptr, nullptr,
+                           tile_expert, y, M, K, N, E, max_nnz);
+}
+
+template <typename T, int BN>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+quant_ragged_kernel(const T* __restrict__ x,
+                    const int8_t* __restrict__ tiles,
+                    const int* __restrict__ counts,
+                    const int* __restrict__ indices,
+                    const int* __restrict__ slots,
+                    const float* __restrict__ scales,
+                    const int* __restrict__ tile_expert, T* __restrict__ y,
+                    int M, int K, int N, int E, int max_nnz) {
+  ragged_run<T, BN, true>(x, nullptr, tiles, counts, indices, slots, scales,
+                          tile_expert, y, M, K, N, E, max_nnz);
 }
 
 // The pointers of one launch: w (dense) or tiles / slots / scales (int8,
@@ -615,33 +645,55 @@ int launch_grouped_block(const Args& a, int E, int M, int K, int N,
     return launch_shared_x<BN>(a, E, M, K, N, max_nnz, block_m, st);
 }
 
+// One warp a (tile, slice) at 16-row tiles, bsp::choose's warps a block
+// (two in f32, four in bf16).
 template <typename T, int BN>
-void launch_ragged_source(const Args& a, int E, int M, int K, int N,
-                          int max_nnz, cudaStream_t st) {
+int launch_ragged(const Args& a, int E, int M, int K, int N, int max_nnz,
+                  cudaStream_t st) {
+  // the attribute once per (T, BN), at the largest block either kernel
+  // may take (kernel 9's bf16 rings need 52,416 bytes, above the default
+  // 48 KB)
+  static const cudaError_t attr = [] {
+    constexpr int dense = bsp::Smem<T, kRows, false>::kWarp;
+    constexpr int quant = bsp::Smem<T, kRows, true>::kWarp;
+    constexpr int bytes = kMaxWarps * (dense > quant ? dense : quant);
+    cudaError_t e = cudaFuncSetAttribute(
+        ragged_kernel<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(quant_ragged_kernel<T, BN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    return e;
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const bool int8 = a.tiles != nullptr;
+  const Config c =
+      bsp::choose(kRows, !std::is_same<T, float>::value, int8);
+  constexpr int CW = bsp::col_width(!std::is_same<T, float>::value, kRows);
+  const long warps_total = static_cast<long>(M / kRows) * (N / CW);
+  const dim3 grid(static_cast<unsigned>((warps_total + c.warps - 1) /
+                                        c.warps));
+  const dim3 block(32 * c.warps);
   const T* xp = static_cast<const T*>(a.x);
-  const T* wp = static_cast<const T*>(a.w);
   T* yp = static_cast<T*>(a.y);
-  const dim3 grid(N / BN, M / kRows);
-  if (a.tiles == nullptr)
-    ragged_kernel<T, BN, DenseStack><<<grid, kThreads, 0, st>>>(
-        xp, wp, DenseStack{}, a.counts, a.indices, a.map, yp, M, K, N, E,
-        max_nnz);
+  if (!int8)
+    ragged_kernel<T, BN><<<grid, block, c.smem, st>>>(
+        xp, static_cast<const T*>(a.w), a.counts, a.indices, a.map, yp, M,
+        K, N, E, max_nnz);
   else
-    ragged_kernel<T, BN, Int8Stack<BN>><<<grid, kThreads, 0, st>>>(
-        xp, wp,
-        Int8Stack<BN>{static_cast<const int8_t*>(a.tiles),
-                      static_cast<const int*>(a.slots),
-                      static_cast<const float*>(a.scales)},
-        a.counts, a.indices, a.map, yp, M, K, N, E, max_nnz);
+    quant_ragged_kernel<T, BN><<<grid, block, c.smem, st>>>(
+        xp, static_cast<const int8_t*>(a.tiles), a.counts, a.indices,
+        static_cast<const int*>(a.slots), static_cast<const float*>(a.scales),
+        a.map, yp, M, K, N, E, max_nnz);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int BN>
 int launch_block(const Args& a, bool ragged, int E, int M, int K, int N,
                  int max_nnz, int block_m, cudaStream_t st) {
-  if (!ragged)
-    return launch_grouped_block<T, BN>(a, E, M, K, N, max_nnz, block_m, st);
-  launch_ragged_source<T, BN>(a, E, M, K, N, max_nnz, st);
-  return static_cast<int>(cudaGetLastError());
+  if (ragged) return launch_ragged<T, BN>(a, E, M, K, N, max_nnz, st);
+  return launch_grouped_block<T, BN>(a, E, M, K, N, max_nnz, block_m, st);
 }
 
 template <typename T>
@@ -700,7 +752,7 @@ extern "C" {
 // Each entry point launches on `stream` and returns cudaGetLastError()
 // right after the launch (0 on success). The caller checks shapes:
 // K % block == 0, N % block == 0, max_nnz >= 1; grouped: M % block_m == 0
-// and block_m % 16 == 0, x, w and tiles on 16 bytes; ragged: M % 16 == 0;
+// and block_m % 16 == 0; ragged: M % 16 == 0; x, w and tiles on 16 bytes;
 // int8: every slot below the number of stored tiles.
 int grouped_block_sparse_matmul_f32(const void* x, const void* w,
                                     const void* counts, const void* indices,

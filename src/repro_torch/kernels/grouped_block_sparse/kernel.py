@@ -14,7 +14,8 @@ slots. All visit only the nonzero (K-block, N-block) tiles of each
 expert's plan. The library is built with ``nvcc`` at first launch and
 bound with ``ctypes``; nothing is built or loaded when this module is
 imported. ``tile_config`` states, without a card, the tile each grouped
-launch takes.
+launch takes; a ragged launch always takes 16-row tiles, one warp a
+(tile, slice).
 """
 from __future__ import annotations
 
@@ -171,7 +172,7 @@ def _weight(w) -> tuple:
 def check_operands_aligned(x, w) -> None:
     """x and the weight (a dense stack ``w``, or the tiles of an int8
     ``(tiles, slots, scales, shape)`` tuple) start on 16 bytes, as the
-    grouped kernels' cp.async copies need."""
+    grouped and ragged kernels' cp.async copies need."""
     bs_kernel._check_aligned(x=x, **({"tiles": w[0]} if isinstance(w, tuple)
                                      else {"w": w}))
 
@@ -222,8 +223,9 @@ def _ragged(variant: str, x, w, counts, indices, tile_expert,
         raise ValueError(f"M = {M} must be a multiple of {TILE_ROWS} and "
                          f"tile_expert {tuple(tile_expert.shape)} must be "
                          f"(M/{TILE_ROWS},)")
-    if M // TILE_ROWS > 65535:
-        raise ValueError(f"M = {M} exceeds the grid's row limit")
+    if (N // 8) * (M // TILE_ROWS) >= 2 ** 31:
+        raise ValueError(f"(M, N) = ({M}, {N}) exceeds the grid's limit")
+    check_operands_aligned(x, w)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return y

@@ -163,11 +163,11 @@ def test_grouped_tile_config_mirrors_the_library(cuda, M, block_m, dtype,
 @pytest.mark.parametrize("M", [16, 130])
 def test_block_sparse_kernel_f32_bitwise_to_grouped_one_expert(cuda, block,
                                                                M):
-    """f32 kernels 1 and 6 run one warp routine (block_sparse_pipe.cuh)
-    whose fmaf order (live K-blocks in plan order, k ascending) is that of
-    the tile routine kernels 7 and 9 still run: one expert of kernel 6
-    over the same plan gives kernel 1's bits, also where kernel 1 takes
-    64-row M-tiles (M 130) and kernel 6 16-row ones (16-row panels)."""
+    """f32 kernels 1 and 6 (and 7) run one warp routine
+    (block_sparse_pipe.cuh) with one fmaf order (live K-blocks in plan
+    order, k ascending): one expert of kernel 6 over the same plan gives
+    kernel 1's bits, also where kernel 1 takes 64-row M-tiles (M 130) and
+    kernel 6 16-row ones (16-row panels)."""
     y1, y6 = _kernel1_and_one_expert(cuda, block, M, torch.float32, False)
     assert torch.equal(y1, y6)
 
@@ -547,16 +547,34 @@ def test_grouped_kernel_matches_plain(cuda, block, dtype, M, block_m):
         "live rows do not depend on the occupancy map"
 
 
+def _expert_runs(tile_expert) -> list:
+    """(expert, first tile, end tile) of each run of consecutive tiles
+    with one owner."""
+    runs, t = [], 0
+    while t < len(tile_expert):
+        t1 = t + 1
+        while t1 < len(tile_expert) and tile_expert[t1] == tile_expert[t]:
+            t1 += 1
+        runs.append((tile_expert[t], t, t1))
+        t = t1
+    return runs
+
+
+@pytest.mark.parametrize("tile_expert,experts", [
+    ([1, 1, 3, 0, 2, 4, -1, -1], 5),
+    # expert 2 owns three consecutive tiles; E (5) marks a dead tile too
+    ([2, 2, 2, 0, 1, 5, 5, -1], 3)])
 @pytest.mark.parametrize("block", [16, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ragged_kernel_matches_plain(cuda, block, dtype):
+def test_ragged_kernel_matches_plain(cuda, block, dtype, tile_expert,
+                                     experts):
     _, w, masks, counts, indices = _expert_case(block, 61)
-    tile_expert = np.array([1, 1, 3, 0, 2, 4, -1, -1], np.int32)
+    E = w.shape[0]
     M = 16 * len(tile_expert)
     x = np.random.default_rng(62).standard_normal(
         (M, w.shape[1])).astype(np.float32)
     xt, wt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w))
-    te = torch.from_numpy(tile_expert).to(cuda)
+    te = torch.from_numpy(np.array(tile_expert, np.int32)).to(cuda)
     args = (torch.from_numpy(counts).to(cuda),
             torch.from_numpy(indices).to(cuda))
     counters.reset()
@@ -564,23 +582,51 @@ def test_ragged_kernel_matches_plain(cuda, block, dtype):
     torch.cuda.synchronize()
     assert counters.snapshot() == {
         "grouped_block_sparse_ragged": 1,
-        "grouped_block_sparse_ragged_experts_computed": 5}
+        "grouped_block_sparse_ragged_experts_computed": experts}
     plain = gbs_ref.ragged_block_sparse_matmul_ref(
         xt.float(), wt.float(), te, 16, torch.from_numpy(masks).to(cuda),
         block, block)
     _close(y, plain, dtype)
-    assert not y[96:].any(), "dead tiles are zeros"
-    assert not y[48:64].any(), "the empty expert gives zeros"
-    # a tile's rows equal kernel 1 on its expert alone: bitwise in f32
-    # (one fmaf order); in bf16 kernel 1 runs on the tensor cores and
-    # kernel 7 widens onto the FFMA units, so the sums differ in order
-    solo = bs_kernel.block_sparse_matmul(
-        xt[:32].contiguous(), wt[1].contiguous(), args[0][1].contiguous(),
-        args[1][1].contiguous(), block)
-    if dtype == torch.float32:
-        assert torch.equal(y[:32], solo)
-    else:
-        _close(y[:32], solo, dtype)
+    for t, e in enumerate(tile_expert):
+        # dead tiles (< 0 or >= E) and the empty expert 0 give zeros
+        if not 1 <= e < E:
+            assert not y[16 * t:16 * t + 16].any(), (t, e)
+    # any owner past E is as dead as E, and reads nothing
+    far = torch.where(te >= E, te + 3, te)
+    assert torch.equal(gbs_kernel.ragged_block_sparse_matmul(
+        xt, wt, *args, far, block), y)
+    # a run of tiles equals kernel 1 on its expert alone, bitwise in both
+    # types: one warp routine (f32 one fmaf order; bf16 the same mma.sync
+    # items in the same order)
+    for e, t0, t1 in _expert_runs(tile_expert):
+        if not 0 <= e < E:
+            continue
+        solo = bs_kernel.block_sparse_matmul(
+            xt[16 * t0:16 * t1].contiguous(), wt[e].contiguous(),
+            args[0][e].contiguous(), args[1][e].contiguous(), block)
+        assert torch.equal(y[16 * t0:16 * t1], solo), (e, t0, t1)
+
+
+def test_ragged_kernel_takes_more_than_65535_tiles(cuda):
+    """The grid is one-dimensional over warps, so the packed buffer may
+    hold more 16-row tiles than a grid's second dimension allows."""
+    block = 16
+    _, w, masks, counts, indices = _expert_case(block, 63)
+    n_tiles = 65536 + 4
+    tile_expert = np.full(n_tiles, 1, np.int32)
+    tile_expert[-4:] = (2, 3, -1, -1)
+    M = 16 * n_tiles
+    gen = torch.Generator(device=cuda).manual_seed(64)
+    xt = torch.randn((M, w.shape[1]), generator=gen, device=cuda)
+    wt = torch.from_numpy(w).to(cuda)
+    te = torch.from_numpy(tile_expert).to(cuda)
+    ct, it = (torch.from_numpy(a).to(cuda) for a in (counts, indices))
+    y = gbs_kernel.ragged_block_sparse_matmul(xt, wt, ct, it, te, block)
+    plain = gbs_ref.ragged_block_sparse_matmul_ref(
+        xt, wt, te, 16, torch.from_numpy(masks).to(cuda), block, block)
+    torch.cuda.synchronize()
+    _close(y, plain, torch.float32)
+    assert not y[-32:].any()
 
 
 def _moe_layer(cuda, E=8, top_k=2, d=64, d_ff=64, block=16, seed=70):
@@ -629,11 +675,10 @@ def test_moe_paths_bitwise_equal_on_the_card(cuda):
     _close(out["ragged"], dense, torch.float32)
 
 
-def test_moe_loop_path_agrees_with_ragged_in_bf16(cuda):
-    """bf16: the per-expert loop (kernel 1, tensor cores) and the ragged
-    path (kernel 7, bf16 widened onto FFMA) sum each row in another order,
-    so their rows are no longer bitwise equal; each rounds an f32 sum to
-    bf16 once, so they agree within one bf16 ulp of the largest row."""
+def test_moe_loop_path_bitwise_to_ragged_in_bf16(cuda):
+    """bf16: the per-expert loop (kernel 1) and the ragged path (kernel 7)
+    run the same mma.sync items in the same order on one warp routine, so
+    their rows are bitwise equal."""
     spec, params, packed = _moe_layer(cuda, seed=77)
     bp = {"moe": {k: v.bfloat16() for k, v in params.items()}}
     x = torch.from_numpy(np.random.default_rng(78).standard_normal(
@@ -649,16 +694,15 @@ def test_moe_loop_path_agrees_with_ragged_in_bf16(cuda):
     assert launches["block_sparse"] == 3 * spec.n_experts
     assert launches["grouped_block_sparse_ragged"] == 3
     assert loop.dtype == ragged.dtype == torch.bfloat16
-    err = (loop.float() - ragged.float()).abs().max().item()
-    assert err <= 2 ** -7 * max(1.0, ragged.float().abs().max().item())
+    assert torch.equal(loop, ragged)
 
 
 @pytest.mark.parametrize("S", [1, 16])
-def test_moe_grouped_path_bitwise_to_loop_in_bf16(cuda, S):
-    """bf16: the grouped path (kernel 6) and the per-expert loop (kernel
-    1) run the same mma.sync items in the same order, so an MoE layer's
-    rows are bitwise equal across them; the ragged path (kernel 7, bf16
-    widened onto FFMA) stays within one bf16 ulp of the largest row."""
+def test_moe_paths_bitwise_equal_in_bf16(cuda, S):
+    """bf16: the grouped path (kernel 6), the per-expert loop (kernel 1)
+    and the ragged path (kernel 7) run the same mma.sync items in the
+    same order, so an MoE layer's rows are bitwise equal across all
+    three."""
     spec, params, packed = _moe_layer(cuda, seed=79)
     bp = {"moe": {k: v.bfloat16() for k, v in params.items()}}
     x = torch.from_numpy(np.random.default_rng(80).standard_normal(
@@ -677,9 +721,7 @@ def test_moe_grouped_path_bitwise_to_loop_in_bf16(cuda, S):
         assert counters.snapshot()[kernel_name] == want, name
     assert out["grouped"].dtype == torch.bfloat16
     assert torch.equal(out["grouped"], out["loop"])
-    err = (out["grouped"].float() - out["ragged"].float()).abs().max()
-    assert err.item() <= 2 ** -7 * max(
-        1.0, out["ragged"].float().abs().max().item())
+    assert torch.equal(out["grouped"], out["ragged"])
 
 
 def test_ragged_switches_to_grouped_above_64_tokens(cuda):
@@ -741,6 +783,10 @@ def test_grouped_kernels_raise_on_what_they_do_not_take(cuda):
         (xp[:24], wt, ct, it, te, 16),                      # M % 16
         (xp, wt, ct, it, te[:1], 16),                       # map shape
         (xp.T.contiguous().T, wt, ct, it, te, 16),          # layout
+        (torch.zeros(xp.numel() + 1, device=cuda)[1:].view(xp.shape), wt,
+         ct, it, te, 16),                                   # 16-byte start
+        (xp, torch.zeros(wt.numel() + 1, device=cuda)[1:].view(wt.shape),
+         ct, it, te, 16),                                   # 16-byte start
     ]
     for args in bad_ragged:
         with pytest.raises(ValueError):
@@ -914,10 +960,13 @@ def test_quant_kernels_raise_on_what_they_do_not_take(cuda):
     xs = torch.zeros((3, 16, w.shape[0]), device=cuda)
     work = torch.ones((3, 1), dtype=torch.int32, device=cuda)
     te = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    off = torch.zeros(s.tiles.numel() + 1, dtype=torch.int8,
+                      device=cuda)[1:].view(s.tiles.shape)
     for tiles, scales, xx in ((s.tiles.float(), s.scales, xs),
                               (s.tiles, s.scales.half(), xs),
                               (s.tiles.cpu(), s.scales, xs),
-                              (s.tiles, s.scales, xs.cpu())):
+                              (s.tiles, s.scales, xs.cpu()),
+                              (off, s.scales, xs)):     # 16-byte start
         with pytest.raises(ValueError):
             gbs_kernel.quant_grouped_block_sparse_matmul(
                 xx, tiles, s.counts, s.indices, s.slots, scales, work, 16,
