@@ -8,8 +8,8 @@ Phases, each printing one line of its own:
 1. device     — asserts CUDA, prints the card's name and power limit;
 2. build      — builds every kernel from this checkout's sources: one
                 ``nvcc`` per CUDA source (block-sparse, paged attention,
-                flash attention, grouped/ragged block-sparse), all started
-                together, then the Triton JIT of the Wanda reduction;
+                flash attention, grouped/ragged block-sparse, SSD scan,
+                Wanda reduction), all started together;
 3. main       — the port's main path at the full width of llama3-8b
                 (depth cut to 4 layers, random weights from seed 0):
                 ``MosaicPipeline`` on ``recipes/golden-smoke.json``
@@ -34,7 +34,9 @@ Phases, each printing one line of its own:
                 by kernel and by op, device idle share;
 6. kernels    — each kernel against its plain PyTorch version at the
                 shapes of the paths above, with times, bounds and a
-                library yardstick; kernel 1 also at a 512-row prefill,
+                library yardstick; kernel 2 also in the Frobenius norm,
+                twice bitwise, with its host time a call;
+                kernel 1 also at a 512-row prefill,
                 and in f32 held bitwise to kernel 6 with one expert
                 (one warp routine, which kernels 5-9 run too);
                 kernel 3 also at the
@@ -111,8 +113,12 @@ Phases, each printing one line of its own:
                 through the recurrence, 8 requests (prompts of 4096, 3000
                 and 17-300 tokens) on the continuous engine's contiguous
                 pool held request by request to the static engine, exact
-                launch counts, a decode trace, and kernel 10 against its
-                plain version at layer 0's inputs;
+                launch counts, a decode trace, the 4096-token prefill's
+                wall time and kernel 10's share of its device time, and
+                kernel 10 against its plain version at layer 0's inputs
+                of three prompts in both types (max-abs and Frobenius,
+                two launches bitwise equal, each sub-kernel's device
+                time, host time a call);
 11. hybrid    — jamba-v0.1-52b at the JAX package's smoke size (attention,
                 Mamba, MLP and MoE layers in one cache pool) pruned with
                 the MoE recipe and served static and continuous to equal
@@ -271,6 +277,18 @@ PREFILL_ROWS = 512                 # 4 x 128 tokens, the continuous chunk
 # JAX package's gemma-2b and nemotron-4-340b configurations
 WIDE_HEADS = (("gemma-2b", 8, 1, 256), ("nemotron-4-340b", 96, 8, 192))
 WANDA_TPU = "src/repro/kernels/wanda_metric/kernel.py:29"
+# Kernel 2 of the first design (a Triton reduction, one program a 64 x
+# 256 tile), ms at each case of phase_kernels: this script's wanda_case
+# driving commit 7ae19a9's package, the later of its two runs in one call
+# (parent, change, change, parent; the earlier within 4%, 8% at (4096,
+# 1024), where Triton's launch host time outlasts the L2 flush: 0.0140
+# in an earlier call), on an NVIDIA H100 80GB HBM3 at 700.00 W. Keys
+# (K, N).
+FIRST_DESIGN_WANDA_MS = {
+    (4096, 14336): 0.0927,
+    (14336, 4096): 0.0902,
+    (4096, 1024): 0.0454,
+}
 PAGED_TPU = "src/repro/kernels/paged_attention/kernel.py:73"
 FLASH_TPU = "src/repro/kernels/flash_attention/kernel.py:61"
 # the continuous phase: one fixed set of requests from seed 0
@@ -308,6 +326,22 @@ MOE_QUANT_WAYS = (("int8", True, {}),             # grouped + ragged, int8
 # the ssm phase: mamba2-1.3b at full width and depth, golden-smoke's recipe
 SSM_ARCH, SSM_RECIPE = "mamba2-1.3b", "golden-smoke.json"
 SSD_TPU = "src/repro/kernels/ssd_scan/kernel.py:52"
+# Kernel 10 of the first design (FFMA in both types, no register tiles,
+# loads not overlapped with math, one output block a (chunk, head)), ms
+# at each case of phase_ssm: this script's _ssd_case driving commit
+# 7ae19a9's package on random inputs of layer 0's shapes, the later of
+# its two runs in one call (parent, change, change, parent; the earlier
+# within 2.5%), on an NVIDIA H100 80GB HBM3 at 700.00 W. Keys (case,
+# dtype).
+FIRST_DESIGN_SSD_MS = {
+    ("layer0 prefill 4096", "float32"): 0.8990,
+    ("layer0 prefill 4096", "bfloat16"): 0.9492,
+    ("layer0 static prefill 4x32", "float32"): 0.1137,
+    ("layer0 static prefill 4x32", "bfloat16"): 0.1163,
+    ("layer0 prefill 3000 from a carried state", "float32"): 0.7480,
+    ("layer0 prefill 3000 from a carried state", "bfloat16"): 0.7895,
+}
+SSM_PREFILL_REPEATS = 3            # warm 4096-token prefills timed
 SSM_CHECK_PROMPT = 600             # two full 256-row chunks, a padded third
 SSM_LONG_PROMPTS = (4096, 3000)    # 16 full chunks; a padded last chunk
 SSM_REQUESTS = 8                   # the long two, then PROMPT_RANGE prompts
@@ -355,6 +389,42 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
+def stage_ms(fn, pattern: str, expect: int, iters: int = 10,
+             attempts: int = 4) -> dict:
+    """Mean device ms of each kernel whose name matches ``pattern``, over
+    its launches in ``iters`` calls of ``fn`` (``torch.profiler``; each
+    call after the L2 flush, as in ``time_ms``), keyed by the matched
+    name: the sub-kernels of one launch of a kernel that runs several.
+    The profiler can drop a short window's device records, so the mean
+    is over the launches it recorded, and the window is profiled again,
+    up to ``attempts`` times, until all ``expect`` names are seen; a name
+    still unseen is not in the result."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                  device="cuda"))
+    fn()
+    torch.cuda.synchronize()
+    spans: dict = {}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                _FLUSH[0].zero_()
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            m = re.search(pattern, e.name)
+            if e.device_type == DeviceType.CUDA and m:
+                spans.setdefault(m.group(0), []).append(
+                    (e.time_range.end - e.time_range.start) / 1e3)
+        if len(spans) >= expect:
+            break
+    return {name: sum(t) / len(t) for name, t in spans.items()}
+
+
 def host_us(fn, iters: int = 50) -> float:
     """Median host time of one call of ``fn`` (its checks, allocations
     and launches), each call made on an idle card so no launch waits for
@@ -400,12 +470,11 @@ def phase_device() -> dict:
     return info
 
 
-def phase_build(device) -> dict:
-    """Build every kernel: one nvcc per CUDA source, all started together,
-    then the Triton JIT (one tiny launch per mode)."""
+def phase_build() -> dict:
+    """Build every kernel: one nvcc per CUDA source, all started
+    together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.block_sparse import kernel as bs_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -425,17 +494,12 @@ def phase_build(device) -> dict:
     for source in sources:
         build.load(source)
     t1 = time.perf_counter()
-    w = torch.ones((64, 256), device=device)
-    a = torch.ones((64,), device=device)
-    wm_kernel.wanda_partials(w, a)
-    wm_kernel.wanda_partials(w, a, torch.ones((1,), device=device))
-    sync(device)
-    t2 = time.perf_counter()
     out = {"nvcc_s": t1 - t0,
            "per_source": {src: {"s": dt, "lib": str(path),
-                                "registers": ptxas_registers(report)}
+                                "registers": ptxas_registers(report),
+                                "spill_bytes": ptxas_spills(report)}
                           for src, path, report, dt in built},
-           "wanda_partials_s": t2 - t1, "build_s": t2 - t0}
+           "build_s": t1 - t0}
     regs = out["per_source"][bs_kernel.SOURCE]["registers"]
     out["kernel1_f32_b16_registers"] = next(
         (n for name, n in regs.items()
@@ -504,6 +568,19 @@ def phase_build(device) -> dict:
         if m:
             key = f"{m.group(1)}<{m.group(2) or ''},{m.group(3) or ''}>"
             out["kernel10_registers"][key] = n
+    # kernel 2: one block a (64 x 256) tile, sums and counts
+    out["kernel2_registers"] = {}
+    for name, n in out["per_source"][wm_kernel.SOURCE]["registers"].items():
+        m = re.search(r"wanda_partials_kernelI(f|13__nv_bfloat16)Lb([01])E",
+                      name)
+        if m:
+            out["kernel2_registers"][
+                f"{'f32' if m.group(1) == 'f' else 'bf16'}/"
+                f"{'count' if m.group(2) == '1' else 'sum'}"] = n
+    if built[sources.index(wm_kernel.SOURCE)][2] and len(
+            out["kernel2_registers"]) != 4:
+        raise AssertionError(f"kernel 2 instantiations: "
+                             f"{sorted(out['kernel2_registers'])}")
     out.update(flash_build_record(
         built[sources.index(fa_kernel.SOURCE)][1:3]))
     log("build", **out)
@@ -1270,9 +1347,6 @@ def phase_kernels(main: dict, device) -> tuple:
     import torch
     from repro_torch.kernels.block_sparse.ops import (
         block_mask_from_weight_mask)
-    from repro_torch.kernels.wanda_metric import kernel as wm_kernel
-    from repro_torch.kernels.wanda_metric import ops as wm_ops
-    from repro_torch.kernels.wanda_metric import ref as wm_ref
     art = main["art"]
     gen = torch.Generator(device=device).manual_seed(1)
     bs_cases = []
@@ -1303,44 +1377,63 @@ def phase_kernels(main: dict, device) -> tuple:
     for c in bs_cases:
         log("kernels", kernel="block_sparse", **c)
 
-    wm_cases = []
-    for K, N in ((4096, 14336), (14336, 4096), (4096, 1024)):
-        w = torch.randn((K, N), generator=gen, device=device)
-        a = torch.rand((K,), generator=gen, device=device) + 0.5
-        part = wm_kernel.wanda_partials(w, a)
-        plain = wm_ref.wanda_partials_ref(w, a, block_k=wm_kernel.BLOCK_K,
-                                          block_n=wm_kernel.BLOCK_N)
-        err = float((part - plain).abs().max())
-        tol = 1e-5 * float(plain.abs().max())
-        ratio = float(wm_ops.outlier_ratio(w, a, 5.0))
-        ratio_plain = float(wm_ref.outlier_ratio_ref(w, a, 5.0))
-        ratio_tol = 2 * 100.0 / (K * N)          # one threshold flip
-        if not (err <= tol and abs(ratio - ratio_plain) <= ratio_tol):
-            raise AssertionError(f"wanda ({K},{N}): partials err {err} > "
-                                 f"{tol} or ratio {ratio} vs "
-                                 f"{ratio_plain}")
-        metric = wm_ref.metric_ref(w, a)
-        n_bytes = (K * N + K) * 4 + part.numel() * 4
-        b_ms, b_by = bound_ms(n_bytes, 3.0 * K * N, "float32")
-        case = {
-            "K": K, "N": N, "dtype": "float32", "max_abs_err": err,
-            "tol": tol, "ratio": ratio, "ratio_plain": ratio_plain,
-            "ms": time_ms(lambda: wm_kernel.wanda_partials(w, a)),
-            "plain_ms": time_ms(lambda: wm_ref.wanda_partials_ref(
-                w, a, block_k=wm_kernel.BLOCK_K,
-                block_n=wm_kernel.BLOCK_N)),
-            "library_ms": time_ms(lambda: torch.sum(metric)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "outlier_ratio_ms": time_ms(
-                lambda: wm_ops.outlier_ratio(w, a, 5.0)),
-            "outlier_ratio_plain_ms": time_ms(
-                lambda: wm_ref.outlier_ratio_ref(w, a, 5.0)),
-            "library_count_ms": time_ms(
-                lambda: torch.count_nonzero(metric > 1.0)),
-        }
-        wm_cases.append(case)
+    wm_cases = [wanda_case(K, N, gen, device)
+                for K, N in ((4096, 14336), (14336, 4096), (4096, 1024))]
+    for case in wm_cases:
         log("kernels", kernel="wanda_partials", **case)
     return bs_cases, wm_cases
+
+
+def wanda_case(K: int, N: int, gen, device) -> dict:
+    """Kernel 2 on a random f32 (K, N) weight against its plain version:
+    the partials within 1e-5 x max|plain| and in the Frobenius norm, two
+    launches bitwise equal, the outlier ratio within one threshold flip;
+    its times, host time a call and first design's time."""
+    import torch
+    from repro_torch.kernels.wanda_metric import kernel as wm_kernel
+    from repro_torch.kernels.wanda_metric import ops as wm_ops
+    from repro_torch.kernels.wanda_metric import ref as wm_ref
+    w = torch.randn((K, N), generator=gen, device=device)
+    a = torch.rand((K,), generator=gen, device=device) + 0.5
+    part = wm_kernel.wanda_partials(w, a)
+    again = wm_kernel.wanda_partials(w, a)
+    plain = wm_ref.wanda_partials_ref(w, a, block_k=wm_kernel.BLOCK_K,
+                                      block_n=wm_kernel.BLOCK_N)
+    err = float((part - plain).abs().max())
+    tol = 1e-5 * float(plain.abs().max())
+    rel = _check_rel(f"wanda ({K},{N}) partials", part, plain, "float32")
+    ratio = float(wm_ops.outlier_ratio(w, a, 5.0))
+    ratio_plain = float(wm_ref.outlier_ratio_ref(w, a, 5.0))
+    ratio_tol = 2 * 100.0 / (K * N)          # one threshold flip
+    if not (err <= tol and abs(ratio - ratio_plain) <= ratio_tol):
+        raise AssertionError(f"wanda ({K},{N}): partials err {err} > "
+                             f"{tol} or ratio {ratio} vs {ratio_plain}")
+    if not torch.equal(part, again):
+        raise AssertionError(f"wanda ({K},{N}): two launches differ")
+    metric = wm_ref.metric_ref(w, a)
+    n_bytes = (K * N + K) * 4 + part.numel() * 4
+    b_ms, b_by = bound_ms(n_bytes, 3.0 * K * N, "float32")
+    rec = {
+        "K": K, "N": N, "dtype": "float32", "max_abs_err": err,
+        "tol": tol, "rel_err": rel, "bitwise_repeat": True,
+        "ratio": ratio, "ratio_plain": ratio_plain,
+        "ms": time_ms(lambda: wm_kernel.wanda_partials(w, a)),
+        "ms_first_design": FIRST_DESIGN_WANDA_MS.get((K, N)),
+        "host_us": host_us(lambda: wm_kernel.wanda_partials(w, a)),
+        "plain_ms": time_ms(lambda: wm_ref.wanda_partials_ref(
+            w, a, block_k=wm_kernel.BLOCK_K, block_n=wm_kernel.BLOCK_N)),
+        "library_ms": time_ms(lambda: torch.sum(metric)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "outlier_ratio_ms": time_ms(
+            lambda: wm_ops.outlier_ratio(w, a, 5.0)),
+        "outlier_ratio_plain_ms": time_ms(
+            lambda: wm_ref.outlier_ratio_ref(w, a, 5.0)),
+        "library_count_ms": time_ms(
+            lambda: torch.count_nonzero(metric > 1.0)),
+    }
+    first = rec["ms_first_design"]
+    rec["speedup_vs_first_design"] = first / rec["ms"] if first else None
+    return rec
 
 
 def _sdpa(q, k, v, **kw):
@@ -2597,13 +2690,19 @@ def _ssd_case(inp: dict, h0, dtype, label: str) -> dict:
     xt, Bm, Cm = (inp[k] if inp[k].dtype == dtype else inp[k].to(dtype)
                   for k in ("xt", "Bm", "Cm"))
     y, h = kernel.ssd_scan(xt, da, Bm, Cm, chunk, h0)
+    y2, h2 = kernel.ssd_scan(xt, da, Bm, Cm, chunk, h0)
     y_p, h_p = ref.ssd_chunked(xt, da, Bm, Cm, chunk, h0)
     torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
+    if not (torch.equal(y, y2) and torch.equal(h, h2)):
+        raise AssertionError(f"ssd_scan {label} {dname}: two launches "
+                             f"differ")
     err, tol = _check_close(f"ssd_scan {label}", y, y_p, dname)
     state_err, state_tol = _check_close(f"ssd_scan {label} state", h, h_p,
                                         dname)
-    del y_p, h_p
+    rel = _check_rel(f"ssd_scan {label}", y, y_p, dname)
+    state_rel = _check_rel(f"ssd_scan {label} state", h, h_p, dname)
+    del y_p, h_p, y2, h2
     B, L, H, P = xt.shape
     N = Bm.shape[2]
     Q = min(chunk, L)
@@ -2619,12 +2718,19 @@ def _ssd_case(inp: dict, h0, dtype, label: str) -> dict:
     n_bytes = (2 * B * L * H * P + 2 * B * L * N) * xt.element_size() \
         + 4 * B * L * H + 4 * B * H * P * N * (1 if h0 is None else 2)
     b_ms, b_by = bound_ms(n_bytes, flops, dname)
-    return {
+
+    def launch():
+        return kernel.ssd_scan(xt, da, Bm, Cm, chunk, h0)
+
+    rec = {
         "case": label, "B": B, "L": L, "H": H, "P": P, "N": N, "chunk": Q,
         "dtype": dname, "h0": h0 is not None, "max_abs_err": err,
         "tol": tol, "state_max_abs_err": state_err, "state_tol": state_tol,
-        "ms": time_ms(lambda: kernel.ssd_scan(xt, da, Bm, Cm, chunk, h0),
-                      iters=10),
+        "rel_err": rel, "state_rel_err": state_rel, "bitwise_repeat": True,
+        "ms": time_ms(launch, iters=10),
+        "ms_first_design": FIRST_DESIGN_SSD_MS.get((label, dname)),
+        "host_us": host_us(launch),
+        "stage_ms": stage_ms(launch, r"ssd_[a-z]+_kernel", 4),
         "plain_ms": time_ms(lambda: ref.ssd_chunked(xt, da, Bm, Cm, chunk,
                                                     h0), iters=5),
         "library_ms": None,
@@ -2632,6 +2738,9 @@ def _ssd_case(inp: dict, h0, dtype, label: str) -> dict:
         "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
         "mbytes": n_bytes / 1e6,
     }
+    first = rec["ms_first_design"]
+    rec["speedup_vs_first_design"] = first / rec["ms"] if first else None
+    return rec
 
 
 def recurrence_ms(art, device) -> dict:
@@ -2790,25 +2899,85 @@ def phase_ssm(device, gpu: str) -> dict:
     log("trace", gpu=gpu, model=SSM_ARCH, recurrence=out["recurrence"],
         **out["trace"])
 
+    t0 = time.perf_counter()
+    out["prefill"] = ssm_prefill(loaded, device, reqs[0].prompt)
+    out["prefill"]["phase_s"] = time.perf_counter() - t0
+    log("ssm", prefill=out["prefill"])
+
+    t0 = time.perf_counter()
+    dtypes = (torch.float32, torch.bfloat16)
     long_in = capture_ssd_inputs(loaded, [reqs[0].prompt], device)
     cases = [_ssd_case(long_in, None, dtype,
                        f"layer0 prefill {SSM_LONG_PROMPTS[0]}")
-             for dtype in (torch.float32, torch.bfloat16)]
+             for dtype in dtypes]
     # the 4096-token prompt's final state carries into the 3000-token one
     _, h_long = ssd_kernel.ssd_scan(long_in["xt"], long_in["da"],
                                     long_in["Bm"], long_in["Cm"],
                                     long_in["chunk"])
     del long_in
-    cases.append(_ssd_case(capture_ssd_inputs(
-        loaded, prompts(loaded.cfg.vocab, 0), device), None, torch.float32,
-        f"layer0 static prefill {BATCH}x{PROMPT_LEN}"))
-    cases.append(_ssd_case(capture_ssd_inputs(
-        loaded, [reqs[1].prompt], device), h_long, torch.float32,
-        f"layer0 prefill {SSM_LONG_PROMPTS[1]} from a carried state"))
+    static_in = capture_ssd_inputs(loaded, prompts(loaded.cfg.vocab, 0),
+                                   device)
+    cases += [_ssd_case(static_in, None, dtype,
+                        f"layer0 static prefill {BATCH}x{PROMPT_LEN}")
+              for dtype in dtypes]
+    carried_in = capture_ssd_inputs(loaded, [reqs[1].prompt], device)
+    cases += [_ssd_case(carried_in, h_long, dtype, f"layer0 prefill "
+                        f"{SSM_LONG_PROMPTS[1]} from a carried state")
+              for dtype in dtypes]
     for case in cases:
         log("kernels", kernel="ssd_scan", **case)
     out["cases"] = cases
+    out["cases_s"] = time.perf_counter() - t0
     return out
+
+
+def ssm_prefill(art, device, prompt: list) -> dict:
+    """One prompt (the 4096-token request), batch 1, through the static
+    ``Engine`` in f32 on the pruned mamba2: one kernel-10 launch a layer,
+    finite logits, the median wall time of SSM_PREFILL_REPEATS warm
+    prefills, and one more under ``torch.profiler`` for device time by
+    kernel class and kernel 10's share of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import counters
+    from repro_torch.serve.engine import Engine
+    eng = Engine.from_artifact(art, ssm_serve_config(
+        max_seq=len(prompt) + 16), sparse=True)
+    tokens = torch.as_tensor([prompt], device=device)
+    counters.reset()
+    _, logits = eng.generate(tokens, 1, return_logits=True)
+    sync(device)
+    launches = counters.snapshot()
+    if launches != {"ssd_scan": art.cfg.n_layers}:
+        raise AssertionError(f"ssm prefill launches {launches}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("ssm prefill: non-finite logits")
+    times = []
+    for _ in range(SSM_PREFILL_REPEATS):
+        sync(device)
+        t0 = time.perf_counter()
+        eng.generate(tokens, 1)
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.generate(tokens, 1)
+        sync(device)
+    by_class: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            c = kernel_class(e.name)
+            by_class[c] = by_class.get(c, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    total = sum(by_class.values())
+    return {"prompt": len(prompt), "launches": launches,
+            "prefill_ms": sorted(times)[len(times) // 2],
+            "prefill_ms_all": times, "device_ms": total or None,
+            "by_class_ms": dict(sorted(by_class.items(),
+                                       key=lambda kv: -kv[1])),
+            "ssd_scan_share": (by_class.get("ssd_scan", 0.0) / total
+                               if total else None)}
 
 
 def phase_hybrid(device, gpu: str) -> dict:
@@ -2933,8 +3102,8 @@ def kernel_table(main: dict, cont: dict, moe: dict, quant: dict,
          "replaces": BLOCK_SPARSE_TPU,
          "launches": main["launches"].get("block_sparse", 0),
          **{k: bs[k] for k in keys}},
-        {"name": "wanda_partials", "route": "triton",
-         "source": "src/repro_torch/kernels/wanda_metric/kernel.py",
+        {"name": "wanda_partials", "route": "cuda",
+         "source": "src/repro_torch/csrc/wanda_metric.cu",
          "replaces": WANDA_TPU,
          "launches": main["launches"].get("wanda_partials", 0),
          **{k: wm[k] for k in keys}},
@@ -2993,11 +3162,13 @@ def main() -> int:
     import torch
     device = torch.device("cuda", 0)
     gpu = dev_info["nvidia_smi"]
-    build_info = phase_build(device)
+    build_info = phase_build()
     main_info = phase_main(device, gpu)
     cont_info = phase_continuous(main_info, device)
     trace = phase_trace(main_info, device)
+    t_kernels = time.perf_counter()
     bs_cases, wm_cases = phase_kernels(main_info, device)
+    kernels_s = time.perf_counter() - t_kernels
     pa_cases, fa_cases, attention_s = phase_attention_kernels(
         main_info, cont_info, device)
     bf16_info = phase_bf16_prefill(main_info, device)
@@ -3026,6 +3197,9 @@ def main() -> int:
     hybrid_info = phase_hybrid(device, gpu)
     hybrid_info["phase_s"] = time.perf_counter() - t_hybrid
     log("phases", ssm_s=ssm_info["phase_s"],
+        ssm_prefill_s=ssm_info["prefill"]["phase_s"],
+        ssm_kernel10_cases_s=ssm_info["cases_s"],
+        kernels_s=kernels_s,
         moe_kernels_s=moe_info["kernels_s"],
         moe_quant_kernels_s=moe_quant_info["kernels_s"],
         moe_bf16_prefill_s=moe_bf16_info["phase_s"],

@@ -40,20 +40,11 @@ BUILD_DIR = _build_dir()
 # every CUDA source of the port: one library each, built in parallel by
 # ``chip_smoke.py``
 SOURCES = ("block_sparse.cu", "paged_attention.cu", "flash_attention.cu",
-           "grouped_block_sparse.cu", "ssd_scan.cu")
+           "grouped_block_sparse.cu", "ssd_scan.cu", "wanda_metric.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict = {}
-
-
-def triton_cache_dir() -> str:
-    """Keep Triton's compiled-kernel cache in the build directory (unless
-    ``TRITON_CACHE_DIR`` names another), not under the user's home."""
-    path = os.environ.setdefault("TRITON_CACHE_DIR",
-                                 str(BUILD_DIR / "triton"))
-    os.makedirs(path, exist_ok=True)
-    return path
 
 
 def nvcc_path() -> str:

@@ -6,11 +6,11 @@ chunk's attention-duality products with the causal segment decay, and an
 f32 (P, N) state carried across the chunks. One launch runs four CUDA
 kernels on the stream, the chunks in parallel and only the state pass in
 order: each chunk's ``C Bᵀ`` (once for all heads), each chunk's state,
-the pass that carries the state across chunks, and each chunk's output,
-through f32 scratch the wrapper allocates. Unlike the TPU kernel it
-starts from an optional
-initial state and returns the final one (a prefill into a Mamba cache
-needs both), and it reads the model's layout directly: xt (B, L, H, P)
+the pass that carries the state across chunks, and each chunk's output
+(one block a 64-row tile), through one scratch buffer the wrapper
+allocates. Unlike the TPU kernel it starts from an optional initial
+state and returns the final one (a prefill into a Mamba cache needs
+both), and it reads the model's layout directly: xt (B, L, H, P)
 and da (B, L, H) contiguous, and Bm, Cm (B, L, N) **by stride** — they
 are slices of the conv output ``xbc``, read in place with their batch
 and position strides (unit stride over N), never copied or repeated per
@@ -28,7 +28,7 @@ from repro_torch.kernels import build, counters
 
 SOURCE = "ssd_scan.cu"
 MAX_CHUNK = 256                    # rows of one chunk (Q)
-TILE = 64                          # chunk rows a tile (the C Bᵀ tiles)
+TILE = 64                          # chunk rows an output block takes
 MAX_STATE = 128                    # state width (N)
 P_SLICES = (64, 32, 16)            # P columns one thread block owns
 _FN = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
@@ -39,10 +39,20 @@ def _function(dtype: torch.dtype):
     fn = _BOUND.get(dtype)
     if fn is None:
         fn = getattr(build.load(SOURCE), _FN[dtype])
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
             ctypes.c_longlong] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _BOUND[dtype] = fn
+    return fn
+
+
+def _scratch_bytes():
+    fn = _BOUND.get("scratch")
+    if fn is None:
+        fn = build.load(SOURCE).ssd_scan_scratch_bytes
+        fn.argtypes = [ctypes.c_int] * 7
+        fn.restype = ctypes.c_longlong
+        _BOUND["scratch"] = fn
     return fn
 
 
@@ -84,12 +94,17 @@ def _check(xt, da, Bm, Cm, chunk, h0) -> None:
         raise ValueError(f"chunk {min(chunk, L)} exceeds {MAX_CHUNK}")
     if P % 16:
         raise ValueError(f"head_dim {P} must be a multiple of 16")
-    n_chunks = -(-L // min(chunk, L))
-    if B > 65535 or n_chunks > 65535 or n_chunks * H >= 2 ** 31:
+    Q = min(chunk, L)
+    n_chunks = -(-L // Q)
+    if B > 65535 or n_chunks > 65535 or \
+            n_chunks * H * -(-Q // TILE) >= 2 ** 31:
         raise ValueError(f"B {B} or L / chunk {n_chunks} exceeds the grid")
     for name, t in (("xt", xt), ("da", da), ("h0", h0)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if xt.data_ptr() % 16:
+        raise ValueError("xt must start on 16 bytes (its rows are read "
+                         "by 16-byte copies)")
     if Bm.stride() != Cm.stride() or Bm.stride(2) != 1:
         raise ValueError(f"Bm and Cm need one stride pair and unit stride "
                          f"over N, got {Bm.stride()} and {Cm.stride()}")
@@ -108,23 +123,20 @@ def ssd_scan(xt: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
     B, L, H, P = xt.shape
     N = Bm.shape[2]
     Q = min(chunk, L)
-    nc = -(-L // Q)
-    Qp = -(-Q // TILE) * TILE
     dev = xt.device
     y = torch.empty_like(xt)
     h_out = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
-    # scratch: each chunk's C Bᵀ (shared by the heads), each chunk's state
-    # (then the state entering it), each chunk's decay exp(Lc_last)
-    cb = torch.empty((B, nc, Qp, Qp), dtype=torch.float32, device=dev)
-    hs = torch.empty((B, nc, H, P, N), dtype=torch.float32, device=dev)
-    dec = torch.empty((B, nc, H), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    # one scratch buffer: each chunk's C Bᵀ (shared by the heads), each
+    # chunk's state, decay exp(Lc_last) and Lc, and the state entering
+    # each chunk, transposed, in xt's dtype
+    scratch = torch.empty(
+        _scratch_bytes()(B, L, H, P, N, Q, xt.element_size()),
+        dtype=torch.uint8, device=dev)
     err = _function(xt.dtype)(
         xt.data_ptr(), da.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        cb.data_ptr(), hs.data_ptr(), dec.data_ptr(),
-        0 if h0 is None else h0.data_ptr(), y.data_ptr(), h_out.data_ptr(),
-        B, L, H, P, N, Q, p_slice(P), Bm.stride(0),
-        Bm.stride(1), stream)
+        scratch.data_ptr(), None if h0 is None else h0.data_ptr(),
+        y.data_ptr(), h_out.data_ptr(), B, L, H, P, N, Q, p_slice(P),
+        Bm.stride(0), Bm.stride(1), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error "
                            f"{err}")

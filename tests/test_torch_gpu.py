@@ -1,4 +1,4 @@
-"""The port's CUDA and Triton kernels against their plain versions, on the
+"""The port's CUDA kernels against their plain versions, on the
 card. Every test here is marked ``gpu`` and skips without a CUDA card.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -213,6 +213,69 @@ def test_outlier_ratio_kernel_matches_plain(cuda, shape):
                                       block_n=wm_kernel.BLOCK_N)
     assert part.shape == plain.shape
     assert (part - plain).abs().max().item() <= 1e-5 * plain.abs().max().item()
+    assert (part - plain).norm().item() <= 1e-5 * plain.norm().item()
+
+
+@pytest.mark.parametrize("shape", [(100, 300), (1000, 3000), (4096, 1024),
+                                   (64, 256), (65, 257)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("count", [False, True])
+def test_wanda_partials_kernel_matches_plain(cuda, shape, dtype, count):
+    """Per-tile sums within 1e-5 of the largest partial, as a whole (the
+    Frobenius norm of the error) too; per-tile counts exact (the kernel
+    forms |w| * anorm with the plain version's one rounding); ragged
+    edges; two launches bitwise equal (a fixed reduction order)."""
+    K, N = shape
+    rng = np.random.default_rng(14 + K)
+    wt = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)
+                          ).to(cuda, dtype)
+    at = torch.from_numpy((rng.random(K) + 0.5).astype(np.float32)).to(cuda)
+    thr = None
+    if count:
+        thr = (3.0 * wm_ref.metric_ref(wt, at).mean()).reshape(1)
+    counters.reset()
+    part = wm_kernel.wanda_partials(wt, at, thr)
+    again = wm_kernel.wanda_partials(wt, at, thr)
+    torch.cuda.synchronize()
+    assert counters.snapshot() == {"wanda_partials": 2}
+    assert torch.equal(part, again)
+    plain = wm_ref.wanda_partials_ref(wt, at, thr, block_k=wm_kernel.BLOCK_K,
+                                      block_n=wm_kernel.BLOCK_N)
+    assert part.shape == plain.shape == (-(-K // 64), -(-N // 256))
+    if count:
+        assert torch.equal(part, plain)
+    else:
+        diff = part - plain
+        assert diff.abs().max().item() <= 1e-5 * plain.abs().max().item()
+        assert diff.norm().item() <= 1e-5 * plain.norm().item()
+
+
+def test_wanda_partials_kernel_takes_strided_rows(cuda):
+    """A row stride off 16 bytes takes the element-by-element loads."""
+    rng = np.random.default_rng(15)
+    full = torch.from_numpy(rng.standard_normal((130, 301)).astype(
+        np.float32)).to(cuda)
+    wt = full[:, 1:300]
+    at = torch.from_numpy((rng.random(130) + 0.5).astype(np.float32)
+                          ).to(cuda)
+    part = wm_kernel.wanda_partials(wt, at)
+    plain = wm_ref.wanda_partials_ref(wt, at, block_k=wm_kernel.BLOCK_K,
+                                      block_n=wm_kernel.BLOCK_N)
+    assert (part - plain).abs().max().item() <= 1e-5 * plain.abs().max().item()
+
+
+def test_wanda_partials_kernel_raises_on_what_it_does_not_take(cuda):
+    wt = torch.ones((64, 256), device=cuda)
+    at = torch.ones((64,), device=cuda)
+    bad = [(wt.cpu(), at.cpu(), None), (wt.half(), at, None),
+           (wt, at.double(), None), (wt, at[:32], None),
+           (wt.t(), torch.ones((256,), device=cuda), None),
+           (wt, at, torch.ones((2,), device=cuda)),
+           (wt, at, torch.ones((1,), device=cuda, dtype=torch.float64)),
+           (wt[:0], at[:0], None)]
+    for w_, a_, t_ in bad:
+        with pytest.raises(ValueError):
+            wm_kernel.wanda_partials(w_, a_, t_)
 
 
 # f32: summation order (online softmax vs one softmax); bf16: both round
@@ -996,10 +1059,14 @@ def _ssd_case(B, L, H, P, N, seed, h0, dtype, cuda):
 
 
 # (B, L, H, P, N, chunk): the smoke mixer's shape (one chunk, a ragged
-# tail) and mamba2's (L a multiple of the chunk, and 600: two full
-# chunks and a padded third)
+# tail), mamba2's (L a multiple of the chunk, and 600: two full chunks
+# and a padded third), mamba2's served layer 0 (45 kept heads, 4096
+# tokens), a chunk below one 64-row tile with P 48 (16-column slices), a
+# single token, and N 5 (B and C rows element by element)
 SSD_SHAPES = [(2, 37, 8, 16, 16, 8), (3, 64, 4, 32, 16, 64),
-              (1, 512, 64, 64, 128, 256), (1, 600, 64, 64, 128, 256)]
+              (1, 512, 64, 64, 128, 256), (1, 600, 64, 64, 128, 256),
+              (1, 4096, 45, 64, 128, 256), (2, 100, 3, 48, 40, 48),
+              (1, 1, 4, 16, 16, 256), (1, 70, 2, 32, 5, 16)]
 
 
 @pytest.mark.parametrize("shape", SSD_SHAPES)
@@ -1011,17 +1078,24 @@ def test_ssd_scan_kernel_matches_plain(cuda, shape, h0, dtype):
     assert Bm.stride(1) == H * P + 2 * N, "read in place, by stride"
     counters.reset()
     y, h = ssd_ops.ssd_scan(xt, da, Bm, Cm, chunk, hs)
+    y2, h2 = ssd_ops.ssd_scan(xt, da, Bm, Cm, chunk, hs)
     torch.cuda.synchronize()
-    assert counters.snapshot() == {"ssd_scan": 1}
+    assert counters.snapshot() == {"ssd_scan": 2}
+    assert torch.equal(y, y2) and torch.equal(h, h2)
     assert y.shape == xt.shape and y.dtype == dtype
     assert h.shape == (B, H, P, N) and h.dtype == torch.float32
     y_p, h_p = ssd_ref.ssd_chunked(xt, da, Bm, Cm, chunk, hs)
     # f32: summation order; bf16: the plain version rounds the scores
-    # and both output terms to bf16 (as JAX does), the kernel once
+    # and both output terms to bf16 (as JAX does), the kernel once, and
+    # the kernel multiplies the decayed xt and the carried state as bf16
+    # operands; held at the largest value and as a whole (the Frobenius
+    # norm of the error)
     tol = 1e-4 if dtype == torch.float32 else 2 ** -7
     for got, want in ((y, y_p), (h, h_p)):
-        err = (got.float() - want.float()).abs().max().item()
-        assert err <= tol * max(1.0, want.float().abs().max().item())
+        diff = got.float() - want.float()
+        assert diff.abs().max().item() <= tol * max(
+            1.0, want.float().abs().max().item())
+        assert diff.norm().item() <= tol * want.float().norm().item()
 
 
 def test_ssd_scan_kernel_raises_on_what_it_does_not_take(cuda):
@@ -1041,6 +1115,8 @@ def test_ssd_scan_kernel_raises_on_what_it_does_not_take(cuda):
         (xt, da[:, :16], Bm, Cm, 8, hs),                        # shapes
         (xt, da, Bm, Cm, 8, hs[:, :1]),
         (xt[..., :8].contiguous(), da, Bm, Cm, 8, hs[..., :8, :]),  # P % 16
+        (torch.zeros(xt.numel() + 1, device=cuda)[1:].view(xt.shape), da,
+         Bm, Cm, 8, hs),                                        # 16 bytes
     ]
     for args in bad:
         with pytest.raises(ValueError):

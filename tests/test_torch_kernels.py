@@ -6,6 +6,7 @@ same inputs made with numpy. The kernels themselves are held against
 their plain versions on the card in ``test_torch_gpu.py``.
 """
 import os
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -319,6 +320,41 @@ def test_wanda_kernel_rejects_cpu_tensors():
     w, a = _wanda_case(64, 128, 9)
     with pytest.raises(ValueError, match="CUDA"):
         wm_kernel.wanda_partials(torch.from_numpy(w), torch.from_numpy(a))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wanda_kernel_rejects_cpu_tensors_in_count_mode(dtype):
+    w, a = _wanda_case(100, 300, 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        wm_kernel.wanda_partials(torch.from_numpy(w).to(dtype),
+                                 torch.from_numpy(a), torch.tensor([1.0]))
+
+
+def test_wanda_kernel_is_a_cuda_source_built_with_the_rest():
+    """Kernel 2 is CUDA C++ on the ctypes route: its source is one of
+    the build's, and importing its launcher needs neither triton nor
+    nvcc (nothing is built until a CUDA launch)."""
+    from repro_torch.kernels import build
+    assert wm_kernel.SOURCE == "wanda_metric.cu"
+    assert wm_kernel.SOURCE in build.SOURCES
+    assert (build.CSRC / wm_kernel.SOURCE).is_file()
+    assert set(wm_kernel._FN) == {torch.float32, torch.bfloat16}
+    assert not wm_kernel._BOUND
+    assert "triton" not in sys.modules
+
+
+def test_port_has_no_triton():
+    """No file of the port names triton: every kernel is CUDA C++."""
+    root = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src", "repro_torch")
+    hits = []
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith((".py", ".cu", ".cuh")):
+                path = os.path.join(d, f)
+                if "triton" in open(path).read().lower():
+                    hits.append(os.path.relpath(path, root))
+    assert not hits
 
 
 def test_counters_reset_and_snapshot():
