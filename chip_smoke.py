@@ -19,6 +19,19 @@ Phases, each printing one line of its own:
                 reset just before and read just after; the same pruned
                 params served dense are the reference for logits and
                 tokens;
+   prune side — the rest of the prune side on the same dense llama3-8b
+                params: ``run_sweep`` of ``recipes/sweep-grid.json`` (six
+                points: p 0.3/0.5/0.7 x composite/unstructured) over
+                golden-smoke with the ``evaluate`` stage, profiling once
+                (exact kernel-2 count) and saving its profile and six
+                bundles; the same points timed with a profile at every
+                point (the model-production ratio, recorded); a
+                ``sparsegpt`` composite point swept on the saved profile,
+                which gains its Hessians lazily (no kernel-2 launch), and
+                whose mask stage beats wanda_block's reconstruction error
+                on each of layer 0's seven projections; the p 0.5
+                composite point's bundle served sparse (kernel 1) and
+                dense, held to the main phase's gates;
 4. continuous — the pruned bundle saved with ``PrunedArtifact.save``,
                 loaded back and checked equal, then served by the
                 ``ContinuousEngine`` on 12 requests (one 3072-token
@@ -34,8 +47,9 @@ Phases, each printing one line of its own:
                 by kernel and by op, device idle share;
 6. kernels    — each kernel against its plain PyTorch version at the
                 shapes of the paths above, with times, bounds and a
-                library yardstick; kernel 2 also in the Frobenius norm,
-                twice bitwise, with its host time a call;
+                library yardstick, in max-abs and in the Frobenius norm
+                of the error, with its host time a call; kernel 2 also
+                twice bitwise;
                 kernel 1 also at a 512-row prefill,
                 and in f32 held bitwise to kernel 6 with one expert
                 (one warp routine, which kernels 5-9 run too);
@@ -74,7 +88,11 @@ Phases, each printing one line of its own:
                 kernel 7 at the 4-token decode tick and at a 64-token
                 one, the most the ragged route takes, likewise timed;
                 kernel 6 with one expert held bitwise to kernel 1 in both
-                types at both heights);
+                types at both heights); then a quarter of the experts
+                removed (``expert_frac``, 128 -> 96, top-8 kept), the
+                stacks re-packed, the bundle round trip, and 4 x 32
+                tokens default (kernels 6 and 7) and dense with exact
+                launch counts and tokens held to dense;
    moe bf16 prefill — one 3072-token prompt, batch 1, through the static
                 ``Engine`` in bf16 on the pruned qwen3-moe: kernel 6
                 three times a layer (240 capacity rows an expert), kernel
@@ -303,6 +321,11 @@ MAX_SLOTS, MAX_SEQ, BLOCK_SIZE, PREFILL_CHUNK = 8, 3584, 16, 128
 PAGED_TRACE_PROMPT = 256           # the paged trace's 8 prompts
 # the MoE phase: qwen3-moe-30b-a3b's 48 layers cut to 4, its own recipe
 MOE_ARCH, MOE_N_PERIODS, MOE_RECIPE = "qwen3-moe-30b-a3b", 4, "moe-smoke.json"
+EXPERT_FRAC = 0.25                 # qwen3-moe's 128 experts -> 96
+SWEEP_GRID = "sweep-grid.json"     # p 0.3/0.5/0.7 x composite/unstructured
+SERVED_POINT = "p0.5-composite-wanda_block"
+SPARSEGPT_GRID = {"p": [0.5], "category": ["composite"],
+                  "selector": ["sparsegpt"]}
 MOE_REQUESTS = 8
 MOE_PROMPT_RANGE = (65, 200)       # every prefill pads past 64 tokens
 MOE_NEW_RANGE = (16, 32)
@@ -721,7 +744,6 @@ def run_main_path(cfg, recipe, device) -> dict:
     sync(device)
     init_s = time.perf_counter() - t0
     art = MosaicPipeline(recipe).run(params, cfg)
-    del params
     prompt = prompts(cfg.vocab, 0)
     runs = {}
     for name, sparse in (("sparse", True), ("dense", False)):
@@ -734,7 +756,7 @@ def run_main_path(cfg, recipe, device) -> dict:
                       "generate_s": time.perf_counter() - t0}
     st = art.report["stage_seconds"]
     return {
-        "art": art, "runs": runs, "init_s": init_s,
+        "art": art, "params": params, "runs": runs, "init_s": init_s,
         "profile_s": st.get("rank"), "plan_s": st.get("plan"),
         "prune_s": st.get("prune"), "pack_s": st.get("pack"),
         "flop_savings": flop_savings(art.packed),
@@ -839,6 +861,275 @@ def phase_main(device, gpu: str) -> dict:
     out["tokens_per_s_dense"] = steady_tokens_per_s(art, device, False)
     log("main", **out)
     out["art"] = art
+    out["params"], out["cfg"] = res["params"], cfg   # the prune side's
+    return out
+
+
+def _recon_error(w, new_w, gram) -> float:
+    """||X W' - X W||_F from the Gram matrix ``gram`` = X^T X of the
+    projection's inputs: sqrt(tr(dW^T gram dW)), dW over the input rows."""
+    import torch
+    dw = (new_w.float() - w.float()).reshape(gram.shape[-1], -1)
+    return float(torch.sqrt((dw * (gram @ dw)).sum().clamp(min=0.0)))
+
+
+def sparsegpt_vs_wanda_block(params, cfg, profile, hessians, point, calib,
+                             device) -> dict:
+    """Layer 0's seven projections pruned at ``point``'s targets by the
+    composite's mask stage with each selector — sparsegpt over the
+    calibration Hessians, wanda_block over the profile's norms — and
+    each pruned weight's reconstruction error on the first calibration
+    batch (its Gram from the ``hessian`` taps). SparseGPT must be below
+    wanda_block on every projection."""
+    from repro_torch.common.tree import tree_get
+    from repro_torch.core import calibrate as C
+    from repro_torch.core import planner as PL
+    from repro_torch.core.registry import SELECTORS, projections
+    from repro_torch.core.unstructured import SelectorContext
+    targets = PL.plan_from_recipe(profile.rank, point,
+                                  weights=profile.weights)
+    grams, _ = C.calibrate(params, cfg, calib[:1], device, mode="hessian")
+    ctxs = {"sparsegpt": SelectorContext(hessians=hessians,
+                                         block=point.block),
+            "wanda_block": SelectorContext(anorms=profile.anorms,
+                                           block=point.block)}
+    out = {}
+    for proj in projections(cfg):
+        if proj.layer != 0:
+            continue
+        w = tree_get(params, proj.path)
+        err = {name: _recon_error(w, SELECTORS.get(name)(
+                   w, proj, targets[proj.key], ctx)[0],
+                   grams[(0, proj.tap)])
+               for name, ctx in ctxs.items()}
+        if not err["sparsegpt"] < err["wanda_block"]:
+            raise AssertionError(f"sparsegpt {proj.name}: reconstruction "
+                                 f"error {err['sparsegpt']} is not below "
+                                 f"wanda_block's {err['wanda_block']}")
+        out[proj.name] = {"target": targets[proj.key], **err,
+                          "ratio": err["sparsegpt"] / err["wanda_block"]}
+    if len(out) != 7:
+        raise AssertionError(f"layer 0 has {sorted(out)}, expected seven "
+                             f"projections")
+    return out
+
+
+def phase_prune_side(main: dict, device, gpu: str) -> dict:
+    """The rest of the prune side on the main phase's dense llama3-8b
+    (4 layers, seed 0): a sweep of ``recipes/sweep-grid.json`` over
+    golden-smoke that profiles once (exact kernel-2 count), saves its
+    profile and six bundles and evaluates each point; the same points
+    timed twice with a profile at every point and once more with one
+    profile (no bundles); a sparsegpt point swept on the
+    saved profile, which gains its Hessians lazily with no second rank,
+    and beats wanda_block's reconstruction error on layer 0; the p 0.5
+    composite point's bundle served sparse (kernel 1) and dense."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.common.tree import iter_paths
+    from repro_torch.core.artifact import PrunedArtifact
+    from repro_torch.core.evaluate import default_eval_batches
+    from repro_torch.core.pipeline import MosaicPipeline
+    from repro_torch.core.rank_controller import RankArtifact
+    from repro_torch.core.recipe import PruneRecipe
+    from repro_torch.core.registry import projections
+    from repro_torch.core.sweep import (GridSpec, _point_stages,
+                                        point_label, run_sweep)
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.kernels import counters
+
+    t_phase = time.perf_counter()
+    params, cfg = main.pop("params"), main["cfg"]
+    base = PruneRecipe.load(os.path.join(HERE, "recipes",
+                                         "golden-smoke.json"))
+    grid = GridSpec.load(os.path.join(HERE, "recipes", SWEEP_GRID))
+    c = base.calibration
+    calib = SyntheticCorpus(cfg.vocab, seed=c.seed).calibration_batches(
+        c.n_samples, c.batch_size, c.seq_len)
+    eval_batches = default_eval_batches(cfg, base)
+    n_projs = len(projections(cfg))
+    n_points = grid.n_points()
+    log("prune_side", gpu=gpu, arch=cfg.name, layers=cfg.n_layers,
+        recipe="recipes/golden-smoke.json", grid=f"recipes/{SWEEP_GRID}",
+        points=n_points, calibration_tokens=int(sum(b.size for b in calib)),
+        eval_tokens={k: int(sum(t.size for t, _ in v))
+                     for k, v in eval_batches.items()})
+    out = {"gpu": gpu, "points": n_points}
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="sweep-", dir=out_dir)
+    try:
+        # -- profile once, prune many (the bundles written to disk)
+        counters.reset()
+        sync(device)
+        t0 = time.perf_counter()
+        res = run_sweep(base, grid, params, cfg, out_dir=tmp,
+                        calibration=calib, eval_batches=eval_batches)
+        sync(device)
+        sweep_wall = time.perf_counter() - t0
+        launches = counters.snapshot()
+        want = {"wanda_partials": 2 * n_projs}
+        if launches != want or not res.profiled \
+                or len(res.rows) != n_points:
+            raise AssertionError(f"sweep: launches {launches} (expected "
+                                 f"{want}), profiled {res.profiled}, "
+                                 f"{len(res.rows)} rows")
+        for r in res.rows:
+            if not (r["ppl"] > 1.0 and 0.0 <= r["acc"] <= 100.0
+                    and r["bytes_after"] > 0
+                    and PrunedArtifact.is_artifact(r["artifact_dir"])):
+                raise AssertionError(f"sweep point {r['label']}: {r}")
+        profile_dir = os.path.join(tmp, "profile")
+        if not RankArtifact.is_artifact(profile_dir) \
+                or not os.path.exists(res.csv_path) \
+                or not any(r["pareto"] for r in res.rows):
+            raise AssertionError("sweep: no profile, pareto.csv or front")
+        once_s = res.rank_artifact.profile_seconds + sum(
+            r["point_seconds"] for r in res.rows)
+        out["sweep"] = {
+            "wall_s": sweep_wall, "compute_s": once_s,
+            "save_s": sweep_wall - once_s,
+            "profile_s": res.rank_artifact.profile_seconds,
+            "launches": launches,
+            "disk_bytes": sum(os.path.getsize(os.path.join(root, f))
+                              for root, _, files in os.walk(tmp)
+                              for f in files),
+            "rows": [{k: r[k] for k in (
+                "label", "ppl", "acc", "bytes_after", "params_after",
+                "prune_seconds", "point_seconds", "flop_savings",
+                "quality_per_byte", "pareto")} for r in res.rows]}
+        log("prune_side", sweep={k: v for k, v in out["sweep"].items()
+                                 if k != "rows"})
+        for r in out["sweep"]["rows"]:
+            log("prune_side", point=r)
+
+        # -- the same points with a profile at every point, then with one
+        # profile again, neither saving bundles: every, every, once, so
+        # both sides run warm after the saving sweep above
+        def profile_every_point() -> tuple:
+            counters.reset()
+            points = {}
+            t0 = time.perf_counter()
+            for point in grid.points(base):
+                recipe = point.replace(
+                    stages=("rank",) + _point_stages(point.stages))
+                t1 = time.perf_counter()
+                art = MosaicPipeline(recipe).run(
+                    params, cfg, calibration=calib,
+                    eval_batches=eval_batches)
+                sync(device)
+                points[point_label(point)] = {
+                    "seconds": time.perf_counter() - t1,
+                    "stage_seconds": art.report["stage_seconds"],
+                    "ppl": art.report["ppl"], "acc": art.report["acc"]}
+                del art
+            return time.perf_counter() - t0, counters.snapshot(), points
+
+        every = [profile_every_point() for _ in range(2)]
+        want = {"wanda_partials": 2 * n_projs * n_points}
+        if any(launches != want for _, launches, _ in every):
+            raise AssertionError(f"profile at every point: launches "
+                                 f"{[e[1] for e in every]}, expected "
+                                 f"{want}")
+        sync(device)
+        t0 = time.perf_counter()
+        again = run_sweep(base, grid, params, cfg, calibration=calib,
+                          eval_batches=eval_batches)
+        sync(device)
+        once_again_s = time.perf_counter() - t0
+        ppl = {r["label"]: r["ppl"] for r in res.rows}
+        every_s = [e[0] for e in every]
+        out["every_point"] = {
+            "wall_s": every_s, "launches": every[0][1],
+            "points": every[-1][2],
+            "ppl_max_rel_diff_vs_sweep": max(
+                abs(v["ppl"] - ppl[k]) / ppl[k]
+                for e in every for k, v in e[2].items())}
+        out["profile_once_again_s"] = once_again_s
+        out["production_ratio"] = (sum(every_s) / len(every_s)
+                                   / once_again_s)
+        log("prune_side", every_point_wall_s=every_s,
+            profile_once_s=[once_s, once_again_s],
+            production_ratio=out["production_ratio"],
+            ppl_max_rel_diff_vs_sweep=out["every_point"][
+                "ppl_max_rel_diff_vs_sweep"],
+            every_point_stage_s=every[-1][2])
+        del again
+
+        # -- sparsegpt on the saved profile: Hessians attached lazily
+        loaded = RankArtifact.load(profile_dir, device)
+        if loaded.hessians is not None:
+            raise AssertionError("the sweep's profile has Hessians")
+        sg_grid = GridSpec.from_dict(SPARSEGPT_GRID)
+        counters.reset()
+        sync(device)
+        t0 = time.perf_counter()
+        sg = run_sweep(base, sg_grid, params, cfg, rank_artifact=loaded,
+                       calibration=calib, eval_batches=eval_batches)
+        sync(device)
+        sg_wall = time.perf_counter() - t0
+        launches = counters.snapshot()
+        hess = sg.rank_artifact.hessians
+        if sg.profiled or launches or hess is None \
+                or loaded.hessians is not None:
+            raise AssertionError(f"sparsegpt sweep: profiled {sg.profiled}"
+                                 f", launches {launches} (a rank runs "
+                                 f"kernel 2), Hessians {hess is not None}")
+        row = sg.rows[0]
+        if not (row["ppl"] > 1.0 and 0.0 <= row["acc"] <= 100.0):
+            raise AssertionError(f"sparsegpt point: {row}")
+        t0 = time.perf_counter()
+        recon = sparsegpt_vs_wanda_block(params, cfg, loaded, hess,
+                                         sg_grid.points(base)[0], calib,
+                                         device)
+        out["sparsegpt"] = {
+            "wall_s": sg_wall,
+            "hessian_s": sg.rank_artifact.profile_seconds
+            - loaded.profile_seconds,
+            "hessian_bytes": sum(h.numel() * h.element_size()
+                                 for h in hess.values()),
+            "prune_s": row["prune_seconds"], "point_s": row["point_seconds"],
+            "ppl": row["ppl"], "acc": row["acc"],
+            "bytes_after": row["bytes_after"], "launches": launches,
+            "reconstruction_layer0": recon,
+            "reconstruction_s": time.perf_counter() - t0}
+        del sg, hess, loaded
+        torch.cuda.empty_cache()
+        log("prune_side", sparsegpt=out["sparsegpt"])
+
+        # -- serve the p 0.5 composite point's bundle
+        t0 = time.perf_counter()
+        pt = PrunedArtifact.load(os.path.join(tmp, "points", SERVED_POINT),
+                                 device)
+        sync(device)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params
+    torch.cuda.empty_cache()
+    ffn_packed = sum(1 for (_, name) in pt.packed
+                     if name in ("gate", "up", "down"))
+    runs = moe_static_runs(pt, device, ways=(("sparse", True, {}),
+                                             ("dense", False, {})))
+    check_static_runs(runs, {"sparse": {"block_sparse":
+                                        ffn_packed * NEW_TOKENS},
+                             "dense": {}})
+    sp, dn = runs["sparse"], runs["dense"]
+    out["serve"] = {
+        "point": SERVED_POINT, "load_s": load_s,
+        "launches": sp["launches"], "ffn_packed": ffn_packed,
+        "generate_s": {k: r["generate_s"] for k, r in runs.items()},
+        **compare_generation(sp["tokens"], sp["logits"], dn["tokens"],
+                             dn["logits"], PROMPT_LEN, LOGIT_ATOL),
+        "params_equal_main_bundle": all(
+            pa == pb and torch.equal(a, b) for (pa, a), (pb, b) in zip(
+                iter_paths(pt.params), iter_paths(main["art"].params)))}
+    del pt
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("prune_side", serve=out["serve"], phase_s=out["phase_s"])
     return out
 
 
@@ -1318,6 +1609,8 @@ def _block_sparse_case(w, plan_mask, M: int, block: int, dtype, gen,
     torch.cuda.synchronize()
     err, tol = _check_close(f"block_sparse {label} M={M} b={block}", y,
                             plain, dname)
+    rel = _check_rel(f"block_sparse {label} M={M} b={block}", y, plain,
+                     dname)
     if int(counts[0]) != 0 or float(y[:, :block].abs().max()) != 0.0:
         raise AssertionError("the empty column did not come out zero")
     live = int(counts.sum())
@@ -1329,9 +1622,12 @@ def _block_sparse_case(w, plan_mask, M: int, block: int, dtype, gen,
     rec = {
         "case": label, "M": M, "K": K, "N": N, "block": block,
         "dtype": dname, "density": live / (counts.numel() * K // block),
-        "max_abs_err": err, "tol": tol, "bitwise_kernel6": order,
+        "max_abs_err": err, "tol": tol, "rel_err": rel,
+        "bitwise_kernel6": order,
         "tile": _tile_record(M, block, dtype, "dense"),
         "ms": time_ms(lambda: kernel.block_sparse_matmul(
+            x, w, counts, indices, block)),
+        "host_us": host_us(lambda: kernel.block_sparse_matmul(
             x, w, counts, indices, block)),
         "ms_first_design": FIRST_DESIGN_MS.get((label, M, block, dname)),
         "plain_ms": time_ms(lambda: ref.block_sparse_matmul_ref(
@@ -1921,11 +2217,88 @@ def phase_moe(device, gpu: str) -> dict:
     for r in out["continuous"]:
         log("moe", **r)
     log("moe", continuous_agreement=cmp)
+    t0 = time.perf_counter()
+    out["expert_removal"] = moe_expert_removal(loaded, device)
+    out["expert_removal"]["phase_s"] = time.perf_counter() - t0
+    log("moe", expert_removal=out["expert_removal"])
     out["art"] = loaded
     out["tokens_per_s"] = {
         name: steady_tokens_per_s(loaded, device, sparse, **kw)
         for name, sparse, kw in MOE_WAYS}
     log("moe", tokens_per_s=out["tokens_per_s"])
+    return out
+
+
+def moe_expert_removal(art, device) -> dict:
+    """Whole-expert removal on the pruned qwen3-moe: ``prune_structured``
+    with ``expert_frac`` EXPERT_FRAC (128 -> 96 experts a layer, top-8
+    kept), the expert stacks re-packed, the bundle round trip, then 4 x
+    32 tokens on the static engine default (kernels 6 and 7) and dense,
+    with exact launch counts and tokens held to dense."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core.artifact import PrunedArtifact
+    from repro_torch.core.structured import prune_structured
+    from repro_torch.models.specs import MoESpec
+    from repro_torch.serve.sparse import (RAGGED_TOKENS_MAX,
+                                          pack_model_with_report)
+    r = art.recipe
+    before = art.cfg.layer(0).ffn
+    n_exp = max(before.top_k,
+                before.n_experts - int(round(EXPERT_FRAC * before.n_experts)))
+    t0 = time.perf_counter()
+    params, cfg = prune_structured(art.params, art.cfg, {},
+                                   expert_frac=EXPERT_FRAC)
+    sync(device)
+    remove_s = time.perf_counter() - t0
+    if any(not isinstance(cfg.layer(i).ffn, MoESpec)
+           or cfg.layer(i).ffn.n_experts != n_exp
+           or cfg.layer(i).ffn.top_k != before.top_k
+           or params["blocks"][i]["moe"]["router"].shape[1] != n_exp
+           for i in range(cfg.n_layers)):
+        raise AssertionError(f"expert removal: {cfg.layer(0)}")
+    t0 = time.perf_counter()
+    packed, pack = pack_model_with_report(
+        params, cfg, block=r.block, group_experts=r.group_experts,
+        ragged_moe=r.ragged_moe, quant=r.quant)
+    sync(device)
+    pack_s = time.perf_counter() - t0
+    reduced = PrunedArtifact(params=params, cfg=cfg, recipe=r,
+                             targets=art.targets, packed=packed,
+                             report={"category": art.report["category"],
+                                     "expert_frac": EXPERT_FRAC,
+                                     "pack": pack})
+    del params
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="moe-experts-", dir=out_dir)
+    try:
+        loaded, bundle = bundle_round_trip(reduced, device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del reduced
+    torch.cuda.empty_cache()
+    runs = moe_static_runs(loaded, device, ways=(MOE_WAYS[0],
+                                                 MOE_WAYS[-1]))
+    L = cfg.n_layers
+    prefill = 1 if BATCH * PROMPT_LEN > RAGGED_TOKENS_MAX else 0
+    expected = {
+        "default": {"grouped_block_sparse": 3 * L * prefill,
+                    "grouped_block_sparse_ragged": 3 * L * (NEW_TOKENS - 1)},
+        "dense": {}}
+    check_static_runs(runs, expected, n_experts=n_exp)
+    d, dn = runs["default"], runs["dense"]
+    out = {"experts": [before.n_experts, n_exp], "top_k": before.top_k,
+           "remove_s": remove_s, "pack_s": pack_s, "bundle": bundle,
+           "flop_savings": pack.get("flop_savings"),
+           "launches": d["launches"], "expected_launches": expected,
+           "generate_s": {k: v["generate_s"] for k, v in runs.items()},
+           **compare_generation(d["tokens"], d["logits"], dn["tokens"],
+                                dn["logits"], PROMPT_LEN, LOGIT_ATOL)}
+    del loaded, runs
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1994,6 +2367,7 @@ def _grouped_case(w, plan, spec, dtype, gen, label: str,
     dname = str(dtype).replace("torch.", "")
     name = "quant_grouped" if quant else "grouped"
     err, tol = _check_close(f"{name}_block_sparse {label}", y, plain, dname)
+    rel = _check_rel(f"{name}_block_sparse {label}", y, plain, dname)
     if quant and not torch.equal(y, y6):
         raise AssertionError(f"kernel 8 {label} {dname} differs from "
                              f"kernel 6 over the dequantised stack")
@@ -2015,7 +2389,7 @@ def _grouped_case(w, plan, spec, dtype, gen, label: str,
         "groups": groups, "tokens": tokens, "capacity": C, "dtype": dname,
         "quant": quant, "experts_computed": int(experts),
         "live_rows": int(row_live.sum()), "live_tiles": live_tiles,
-        "max_abs_err": err, "tol": tol,
+        "max_abs_err": err, "tol": tol, "rel_err": rel,
         "ms": time_ms(launch), "host_us": host_us(launch),
         "ms_first_design": first,
         "plain_ms": time_ms(lambda: ref.grouped_block_sparse_matmul_ref(
@@ -2115,6 +2489,7 @@ def _ragged_case(w, plan, spec, dtype, gen, label: str,
     dname = str(dtype).replace("torch.", "")
     name = "quant_ragged" if quant else "ragged"
     err, tol = _check_close(f"{name}_block_sparse {label}", y, plain, dname)
+    rel = _check_rel(f"{name}_block_sparse {label}", y, plain, dname)
     if quant and not torch.equal(y, y7):
         raise AssertionError(f"kernel 9 {label} {dname} differs from "
                              f"kernel 7 over the dequantised stack")
@@ -2141,7 +2516,7 @@ def _ragged_case(w, plan, spec, dtype, gen, label: str,
         "tokens": tokens, "assignments": tokens * spec.top_k,
         "tiles": te.numel(), "live_tiles": int(live.sum()),
         "experts_computed": int(experts.numel()), "dtype": dname,
-        "quant": quant, "max_abs_err": err, "tol": tol,
+        "quant": quant, "max_abs_err": err, "tol": tol, "rel_err": rel,
         "ms": time_ms(launch), "host_us": host_us(launch),
         "ms_first_design": first,
         "plain_ms": time_ms(lambda: ref.ragged_block_sparse_matmul_ref(
@@ -2304,6 +2679,7 @@ def _quant_block_sparse_case(w, plan, M: int, dtype, gen,
                              f"{float((y - y1).abs().max())}")
     err, tol = _check_close(f"quant_block_sparse {label} M={M}", y, plain,
                             dname)
+    rel = _check_rel(f"quant_block_sparse {label} M={M}", y, plain, dname)
     live = int(plan.counts.sum())
     n_bytes = (M * K + M * N) * x.element_size() + live * (b * b + 12) \
         + 4 * plan.counts.numel()
@@ -2313,9 +2689,11 @@ def _quant_block_sparse_case(w, plan, M: int, dtype, gen,
         "case": label, "M": M, "K": K, "N": N, "block": b, "dtype": dname,
         "density": live / (plan.counts.numel() * K // b),
         "tiles": int(plan.tiles.shape[0]),
-        "max_abs_err": err, "tol": tol,
+        "max_abs_err": err, "tol": tol, "rel_err": rel,
         "tile": _tile_record(M, b, dtype, "int8"),
         "ms": time_ms(lambda: kernel.quant_block_sparse_matmul(x, *args)),
+        "host_us": host_us(lambda: kernel.quant_block_sparse_matmul(
+            x, *args)),
         "ms_first_design": FIRST_DESIGN_QUANT_MS.get((label, M, b, dname)),
         "kernel1_ms": time_ms(lambda: kernel.block_sparse_matmul(
             x, wd, plan.counts, plan.indices, b)),
@@ -3164,6 +3542,7 @@ def main() -> int:
     gpu = dev_info["nvidia_smi"]
     build_info = phase_build()
     main_info = phase_main(device, gpu)
+    prune_side_info = phase_prune_side(main_info, device, gpu)
     cont_info = phase_continuous(main_info, device)
     trace = phase_trace(main_info, device)
     t_kernels = time.perf_counter()
@@ -3196,7 +3575,9 @@ def main() -> int:
     t_hybrid = time.perf_counter()
     hybrid_info = phase_hybrid(device, gpu)
     hybrid_info["phase_s"] = time.perf_counter() - t_hybrid
-    log("phases", ssm_s=ssm_info["phase_s"],
+    log("phases", prune_side_s=prune_side_info["phase_s"],
+        moe_expert_removal_s=moe_info["expert_removal"]["phase_s"],
+        ssm_s=ssm_info["phase_s"],
         ssm_prefill_s=ssm_info["prefill"]["phase_s"],
         ssm_kernel10_cases_s=ssm_info["cases_s"],
         kernels_s=kernels_s,
@@ -3214,7 +3595,8 @@ def main() -> int:
                              "quant_ragged": qrg_cases})
 
     record = {"device": dev_info, "build": build_info,
-              "main": main_info, "continuous": cont_info, "trace": trace,
+              "main": main_info, "prune_side": prune_side_info,
+              "continuous": cont_info, "trace": trace,
               "block_sparse_cases": bs_cases, "wanda_cases": wm_cases,
               "paged_attention_cases": pa_cases,
               "flash_attention_cases": fa_cases,

@@ -1,10 +1,10 @@
 """Calibration pass: per-projection input-activation statistics.
 
 Runs the calibration set through the model once and accumulates, for
-every projection input, the per-channel sum of squares; its square root
-is Eq. 5's ``||A_n||_2``. This is the Mosaic RC's "LLM Profiler" +
-"Activation Processor" (Fig. 5, steps 2-4). Only the ``ssq`` mode is
-ported; Gram (Hessian) statistics come with the sparsegpt selector.
+every projection input, the per-channel sum of squares (its square root
+is Eq. 5's ``||A_n||_2``), the Gram matrix ``X^T X`` (the SparseGPT
+Hessian), or both from the same forwards. This is the Mosaic RC's "LLM
+Profiler" + "Activation Processor" (Fig. 5, steps 2-4).
 """
 from __future__ import annotations
 
@@ -41,9 +41,14 @@ def _forward_stats(params, cfg: ModelConfig, tokens: torch.Tensor,
 def calibrate(params, cfg: ModelConfig, batches: Iterable, device,
               mode: str = "ssq") -> tuple:
     """Accumulate activation stats over calibration batches (numpy or
-    tensor token arrays, moved to ``device``). ``batches`` is consumed
-    exactly once. Returns ``(stats, n_tokens)`` with stats
-    ``{(layer, tap): per-channel sum of squares}``."""
+    tensor token arrays, moved to ``device``).
+
+    mode='ssq'     -> {(layer, tap): per-channel sum of squares}
+    mode='hessian' -> {(layer, tap): X^T X Gram matrix}
+    mode='both'    -> {(layer, tap): (ssq, X^T X)} from ONE pass (see
+                      :func:`split_stats`).
+    ``batches`` may be any iterable (a generator too): it is consumed
+    exactly once. Returns ``(stats, n_tokens)``."""
     total = None
     n_tokens = 0
     for tokens in batches:
@@ -53,8 +58,20 @@ def calibrate(params, cfg: ModelConfig, batches: Iterable, device,
         if total is None:
             total = stats
         else:
-            total = {k: total[k] + v for k, v in stats.items()}
+            total = {k: _add(total[k], v) for k, v in stats.items()}
     return total, n_tokens
+
+
+def _add(a, b):
+    if isinstance(a, tuple):                     # mode 'both'
+        return tuple(x + y for x, y in zip(a, b))
+    return a + b
+
+
+def split_stats(both: dict) -> tuple:
+    """mode='both' stats -> (ssq stats, hessian stats)."""
+    return ({k: v[0] for k, v in both.items()},
+            {k: v[1] for k, v in both.items()})
 
 
 def activation_norms(stats: dict) -> dict:

@@ -1,11 +1,11 @@
 """MosaicPipeline: staged execution of the paper's Fig. 6 flow — RC
 profiling -> projection planning -> category execution -> post-pruning
-block packing -> report.
+block packing -> quality evaluation -> report.
 
 Stages are named entries in ``repro_torch.core.registry.STAGES``
 operating on a shared :class:`PipelineContext`; a
 :class:`~repro_torch.core.recipe.PruneRecipe` picks the ordered subset to
-run. The ``evaluate`` stage comes with a later slice.
+run.
 
     recipe = PruneRecipe.load("recipes/golden-smoke.json")
     artifact = MosaicPipeline(recipe).run(params, cfg)
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.tree import param_bytes, param_count, tree_device
+from repro_torch.core import evaluate as _EV   # noqa: F401 (registers stage)
 from repro_torch.core import planner as PL
 from repro_torch.core import prune_controller as PC
 from repro_torch.core.artifact import PrunedArtifact
@@ -47,6 +48,8 @@ class PipelineContext:
     dense_bytes: int = 0
     timings: dict = dataclasses.field(default_factory=dict)
     report: dict = dataclasses.field(default_factory=dict)
+    eval_batches: Optional[dict] = None   # held-out set for 'evaluate'
+    quality: Optional[dict] = None        # {'ppl': ..., 'acc': ...}
 
 
 # ------------------------------------------------------------- stages
@@ -149,6 +152,8 @@ def stage_report(ctx: PipelineContext) -> None:
         "pipeline_seconds": round(sum(ctx.timings.values()), 6),
         "recipe": r.to_dict(),
     })
+    if ctx.quality:                       # 'evaluate' ran before 'report'
+        ctx.report.update(ctx.quality)
 
 
 def _jsonable(obj):
@@ -179,7 +184,8 @@ class MosaicPipeline:
     def run(self, params, cfg: ModelConfig, *,
             calibration: Optional[list] = None,
             rank_artifact: Optional[RankArtifact] = None,
-            platform: Optional[PC.Platform] = None) -> PrunedArtifact:
+            platform: Optional[PC.Platform] = None,
+            eval_batches: Optional[dict] = None) -> PrunedArtifact:
         """Stage timings synchronise the params' device first, so each
         stage's seconds hold its own device work."""
         cfg = cfg if not cfg.scan_layers else cfg.unrolled()
@@ -187,7 +193,8 @@ class MosaicPipeline:
         ctx = PipelineContext(
             recipe=self.recipe, params=params, cfg=cfg,
             calibration=calibration, rank_artifact=rank_artifact,
-            platform=platform, dense_params=param_count(params),
+            platform=platform, eval_batches=eval_batches,
+            dense_params=param_count(params),
             dense_bytes=param_bytes(params))
         for name in self.stage_names:
             _sync(device)

@@ -5,6 +5,11 @@ global rank R_LLM: one profile serves every pruning level p and every
 pruning category, and, through :meth:`RankArtifact.save` /
 :meth:`RankArtifact.load`, every later process. The files are the JAX
 package's (``profile.npz`` + ``profile.json``).
+
+Profiling is single-pass: when SparseGPT Hessians are wanted the
+calibration forward collects both the POD ssq stats and the Gram
+matrices in one sweep (tap mode ``both``); a profile taken without
+Hessians can have them attached later with :func:`ensure_hessians`.
 """
 from __future__ import annotations
 
@@ -108,19 +113,56 @@ def profile_model(params, cfg: ModelConfig,
                   device=None) -> RankArtifact:
     """RC profiling (the pipeline's ``rank`` stage): one calibration pass
     over the model emits the reusable global rank R_LLM. ``device`` is
-    where the calibration tokens go (default: the params' device)."""
-    if want_hessians:
-        raise NotImplementedError(
-            "Hessian profiling (sparsegpt) is not ported yet")
+    where the calibration tokens go (default: the params' device).
+
+    Single-pass even with ``want_hessians``: the forward collects the ssq
+    stats and the SparseGPT Grams together (tap mode ``both``), so the
+    calibration iterable is consumed exactly once."""
     cfg = cfg if not cfg.scan_layers else cfg.unrolled()
     device = tree_device(params) if device is None else device
     t0 = time.perf_counter()
+    mode = "both" if want_hessians else "ssq"
     stats, n_tokens = C.calibrate(params, cfg, calibration_batches, device,
-                                  mode="ssq")
+                                  mode=mode)
+    hessians = None
+    if want_hessians:
+        stats, hessians = C.split_stats(stats)
     anorms = C.activation_norms(stats)
     rank = pod.global_rank(params, cfg, anorms, alpha=alpha)
     weights = {p.key: int(tree_get(params, p.path).numel())
                for p in projections(cfg)}
     return RankArtifact(rank=rank, anorms=anorms, weights=weights,
                         n_tokens=n_tokens,
-                        profile_seconds=time.perf_counter() - t0)
+                        profile_seconds=time.perf_counter() - t0,
+                        hessians=hessians)
+
+
+def ensure_hessians(artifact: RankArtifact, params, cfg: ModelConfig,
+                    calibration_batches: Iterable,
+                    device=None) -> RankArtifact:
+    """Lazily attach SparseGPT Hessians to a Hessian-free profile (one
+    ``hessian``-mode calibration pass, its seconds added to
+    ``profile_seconds``). The input artifact is not mutated; a no-op
+    when Hessians are present."""
+    if artifact.hessians is not None:
+        return artifact
+    cfg = cfg if not cfg.scan_layers else cfg.unrolled()
+    device = tree_device(params) if device is None else device
+    t0 = time.perf_counter()
+    hessians, _ = C.calibrate(params, cfg, calibration_batches, device,
+                              mode="hessian")
+    return dataclasses.replace(
+        artifact, hessians=hessians,
+        profile_seconds=artifact.profile_seconds
+        + (time.perf_counter() - t0))
+
+
+def run_ranking_controller(params, cfg: ModelConfig,
+                           calibration_batches: Iterable,
+                           alpha: float = pod.DEFAULT_ALPHA,
+                           want_hessians: bool = False,
+                           device=None) -> RankArtifact:
+    """Deprecated shim — use :func:`profile_model`, or run the ``rank``
+    stage of :class:`repro_torch.core.pipeline.MosaicPipeline`."""
+    return profile_model(params, cfg, calibration_batches, alpha=alpha,
+                         want_hessians=want_hessians, device=device)

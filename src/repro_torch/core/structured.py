@@ -5,7 +5,7 @@ Kept group counts stay multiples of a configurable alignment, so pruned
 widths stay tile friendly. Scores are post-mask magnitudes by default —
 heads hollowed out by unstructured pruning rank lowest, which is exactly
 the paper's composite synergy. Whole-expert removal (``expert_frac``)
-comes with its slice.
+goes beyond the paper.
 """
 from __future__ import annotations
 
@@ -116,6 +116,33 @@ def prune_moe(block: dict, spec: MoESpec, frac: float,
     return new_block, dataclasses.replace(spec, d_ff=int(keep))
 
 
+def prune_experts(block: dict, spec: MoESpec, frac: float) -> tuple:
+    """Beyond-paper extension: remove whole experts (the coarsest MoE
+    group). Experts are scored by routed mass proxy (router column norm)
+    x weight mass; at least top_k experts are kept and the router is
+    re-shaped accordingly. The ranking is numpy's ``argsort(-score)``,
+    as in the JAX package, so ties keep the same experts."""
+    moe = block["moe"]
+    E = spec.n_experts
+    router_mass = _abs32(moe["router"]).sum(dim=0)               # (E,)
+    w_mass = (_abs32(moe["up"]).sum(dim=(1, 2))
+              + _abs32(moe["down"]).sum(dim=(1, 2)))
+    if spec.gated:
+        w_mass = w_mass + _abs32(moe["gate"]).sum(dim=(1, 2))
+    score = (router_mass * w_mass).cpu().numpy()
+    keep = max(spec.top_k, E - int(round(frac * E)))
+    kept = np.sort(np.argsort(-score)[:keep])
+    kept_t = torch.as_tensor(kept, dtype=torch.long,
+                             device=moe["router"].device)
+    new_moe = dict(moe)
+    new_moe["router"] = moe["router"].index_select(1, kept_t)
+    for name in ("up", "down") + (("gate",) if spec.gated else ()):
+        new_moe[name] = moe[name].index_select(0, kept_t)
+    new_block = dict(block)
+    new_block["moe"] = new_moe
+    return new_block, dataclasses.replace(spec, n_experts=int(keep))
+
+
 # ---------------------------------------------------------------- mamba
 
 def prune_mamba(block: dict, spec: MambaSpec, frac: float,
@@ -183,8 +210,6 @@ def prune_structured(params, cfg: ModelConfig, fractions: dict,
     """Returns (new_params, new_cfg) with physically smaller projections."""
     if cfg.scan_layers:
         raise ValueError("structured pruning operates on unrolled models")
-    if expert_frac:
-        raise NotImplementedError("expert removal is not ported yet")
     new_blocks = []
     new_specs = []
     for i, spec in enumerate(cfg.layers()):
@@ -198,6 +223,8 @@ def prune_structured(params, cfg: ModelConfig, fractions: dict,
             block, mixer = prune_mamba(block, spec.mixer, f, align_heads)
         ffn = spec.ffn
         if isinstance(ffn, MoESpec):
+            if expert_frac > 0.0:
+                block, ffn = prune_experts(block, ffn, expert_frac)
             f = fractions.get((i, "ffn"), 0.0)
             block, ffn = prune_moe(block, ffn, f, align_channels)
         elif isinstance(ffn, MLPSpec):

@@ -5,7 +5,8 @@ Selectors:
   wanda       — |W| · ||A||_2  (Eq. 5 metric; the paper's ranking metric)
   wanda_block — the Eq. 5 metric summed over (block x block) tiles; whole
                 tiles are pruned, so the block-sparse kernel skips them
-  sparsegpt   — not ported yet
+  sparsegpt   — OBS scores w²/diag(H⁻¹)² with a weight update
+                (``repro_torch.core.sparsegpt``)
 
 Masked weights are exactly zero; mask counts use floor(target·numel) so
 the achieved sparsity is exact and idempotent. Sorts are stable, as
@@ -141,7 +142,11 @@ def _sel_wanda_block(w, proj, target, ctx):
 
 @register_selector("sparsegpt")
 def _sel_sparsegpt(w, proj, target, ctx):
-    raise NotImplementedError("the sparsegpt selector is not ported yet")
+    from repro_torch.core.sparsegpt import sparsegpt_prune
+    if ctx.hessians is None:
+        raise ValueError("sparsegpt selector needs calibration hessians")
+    return sparsegpt_prune(w, ctx.hessians[(proj.layer, proj.tap)],
+                           target, proj)
 
 
 def prune_unstructured(params, cfg: ModelConfig, targets: dict,
@@ -153,7 +158,8 @@ def prune_unstructured(params, cfg: ModelConfig, targets: dict,
     """Apply per-projection masks. Returns (new_params, masks).
 
     targets: {(layer, name): fraction}. ``selector`` names an entry in
-    ``registry.SELECTORS``. ``block`` is the tile size for block
+    ``registry.SELECTORS``; 'sparsegpt' also updates the surviving
+    weights (OBS reconstruction). ``block`` is the tile size for block
     selectors — keep it equal to the serving kernel's pack block.
     """
     sel = SELECTORS.get(selector)

@@ -262,3 +262,20 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     else:
         logits = x @ params["lm_head"]["w"].to(compute_dtype)
     return logits, new_cache, aux_total
+
+
+# ---------------------------------------------------------------- losses
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab: Optional[int] = None) -> torch.Tensor:
+    """Mean next-token CE. logits: (B, S, Vp) (padded vocab ok), labels:
+    (B, S). The padded columns get -1e30 added, as in the JAX package."""
+    logits = logits.float()
+    if vocab is not None and vocab < logits.shape[-1]:
+        pad = logits.shape[-1] - vocab
+        logits = logits + torch.cat([
+            torch.zeros(vocab, device=logits.device),
+            torch.full((pad,), -1e30, device=logits.device)])
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()

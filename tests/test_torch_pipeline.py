@@ -75,7 +75,8 @@ def test_corpus_and_recipe_match_jax():
         np.testing.assert_array_equal(x, y)
     assert PruneRecipe.load(RECIPE).to_dict() == JaxRecipe.load(
         RECIPE).to_dict()
-    assert STAGES.names() == ["pack", "plan", "prune", "rank", "report"]
+    assert STAGES.names() == ["evaluate", "pack", "plan", "prune", "rank",
+                              "report"]
 
 
 def test_registry_matches_jax():
