@@ -140,7 +140,23 @@ Phases, each printing one line of its own:
 11. hybrid    — jamba-v0.1-52b at the JAX package's smoke size (attention,
                 Mamba, MLP and MoE layers in one cache pool) pruned with
                 the MoE recipe and served static and continuous to equal
-                tokens, through kernels 10, 1, 6 and 7.
+                tokens, through kernels 10, 1, 6 and 7;
+12. train     — the training path (plain PyTorch with autograd, as the
+                reference trains in plain JAX): llama3-8b at full width
+                and 2 layers, 12 ``Trainer`` steps on one batch of 4 x
+                1024 tokens, bf16 over f32 masters with remat and AdamW
+                (the loss on those tokens falls,
+                finite, no kernel launch; warm step ms, tokens/s, peak
+                memory, model FLOP/s share), then 2 steps each of
+                qwen3-moe-30b-a3b (2 layers) and mamba2-1.3b (4 layers);
+                then the first trained model: ``launch/train.py`` on
+                tests/test_system.py's small llama-style model, 120
+                steps, preempted at step 60 and resumed (losses within
+                1e-3 of an uninterrupted run), its base ppl, the three
+                categories at p 0.3 (kernel 2; unstructured <= 1.5 x
+                composite <= 1.5^2 x structured), LoRA recovery at p 0.5,
+                and the composite model served sparse (kernel 1) and
+                dense to equal tokens outside near ties.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -150,9 +166,12 @@ of the JAX package. A full record goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -372,6 +391,20 @@ SSM_MAX_SEQ = SSM_LONG_PROMPTS[0] + NEW_RANGE[1]
 STATE_RTOL = 1e-4                  # x max|state|: f32 sum-order noise
 # static-engine ways: the plans exist, but Mamba projections serve dense
 SSM_WAYS = (("sparse", True, {}), ("dense", False, {}))
+
+# the train phase: full width at a cut depth, bf16 over f32 masters
+TRAIN_FULL = (("llama3-8b", 2, 12), ("qwen3-moe-30b-a3b", 2, 2),
+              ("mamba2-1.3b", 4, 2))    # (arch, layers, steps)
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+# the first trained model: tests/test_system.py's recipe through
+# launch/train.py, preempted at TRAIN_STOP and resumed
+SMALL_TRAIN_ARGV = ["--smoke", "--steps", "120", "--batch", "16", "--seq",
+                    "64", "--lr", "2e-3", "--ckpt-every", "50"]
+TRAIN_STOP = 60
+RESUME_RTOL = 1e-3                 # embedding backward: atomics, not bitwise
+TRAINED_PPL_MAX = 150              # well below the vocabulary of 256
+ORDER_SLACK = 1.5                  # tests/test_system.py's slack
 HYBRID_ARCH, HYBRID_REQUESTS = "jamba-v0.1-52b", 6
 
 
@@ -3441,6 +3474,292 @@ def phase_hybrid(device, gpu: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ training
+
+def train_full_width(arch: str, n_layers: int, steps: int, device) -> dict:
+    """``steps`` Trainer steps of ``arch`` at full width and ``n_layers``
+    layers: bf16 compute over f32 masters, remat, AdamW, on one batch of
+    TRAIN_BATCH x TRAIN_SEQ tokens of the synthetic corpus, repeated. At
+    a vocabulary of 128256 the corpus's tokens are close to uniform
+    (every token has 20 random successors), so fresh batches cannot
+    lower the loss in a few steps; on one batch the loss is measured on
+    the same tokens at every step, and falls as the model fits them.
+    Every loss and gradient norm finite and no kernel launched; the warm
+    step ms (median of the steps after the first two, or the second of
+    two), tokens/s, peak memory and, for a dense model, 6 * params *
+    tokens a step over the bf16 peak."""
+    import torch
+    from repro_torch.common.tree import param_count
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.kernels import counters
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer
+
+    full = get_config(arch)
+    cfg = full.replace(n_periods=n_layers // len(full.pattern), remat=True)
+    grad_norms, auxes = [], []
+
+    def record(step, m):
+        grad_norms.append(float(m["grad_norm"]))
+        auxes.append(float(m["aux"]))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(
+        cfg, OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                       total_steps=steps),
+        itertools.repeat(next(SyntheticCorpus(cfg.vocab, seed=0).batches(
+            TRAIN_BATCH, TRAIN_SEQ)), steps),
+        compute_dtype=torch.bfloat16, log_fn=record, device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = param_count(trainer.state["params"])
+    counters.reset()
+    try:
+        rep = trainer.run(steps)
+    finally:
+        trainer.preemption.uninstall()
+    launches = counters.snapshot()
+    peak = torch.cuda.max_memory_allocated(device)
+    del trainer
+    torch.cuda.empty_cache()
+    losses = rep.losses
+    if rep.steps_run != steps or not all(
+            math.isfinite(x) for x in losses + grad_norms + auxes):
+        raise AssertionError(f"{arch}: {rep.steps_run} steps, losses "
+                             f"{losses}, grad norms {grad_norms}")
+    if launches:
+        raise AssertionError(f"{arch}: train steps launched {launches}")
+    warm = sorted(rep.step_seconds[min(2, steps - 1):])
+    step_s = warm[len(warm) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"arch": arch, "layers": cfg.n_layers,
+           "depth_cut": f"n_periods {full.n_periods} -> {cfg.n_periods}",
+           "params": n_params, "steps": steps, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "losses": losses, "grad_norms": grad_norms,
+           "aux": auxes, "launches": launches, "init_s": init_s,
+           "step_s": rep.step_seconds, "warm_step_ms": step_s * 1e3,
+           "tokens_per_s": tokens / step_s, "max_memory_allocated": peak,
+           "loss_fell": losses[-1] < losses[0]}
+    if full.arch_class == "dense":
+        flops = 6 * n_params * tokens
+        out["model_flops_per_s"] = flops / step_s
+        out["bf16_peak_share"] = flops / step_s / PEAK_OPS["bfloat16"]
+    return out
+
+
+def small_train_config():
+    """tests/conftest.py::small_config(vocab=256), rebuilt here: two
+    llama-style layers, d 64, 4 q / 2 kv heads of 16, d_ff 128."""
+    from repro_torch.models.specs import (AttentionSpec, LayerSpec, MLPSpec,
+                                          ModelConfig)
+    return ModelConfig(
+        name="test", d_model=64, vocab=256, vocab_pad_multiple=16,
+        pattern=(LayerSpec(AttentionSpec(n_q=4, n_kv=2, head_dim=16),
+                           MLPSpec(d_ff=128)),),
+        n_periods=2, scan_layers=False, remat=False)
+
+
+def train_with_resume(cfg, device, directory: str) -> dict:
+    """``launch/train.py`` on ``cfg`` three ways: uninterrupted; stopped at
+    TRAIN_STOP through ``PreemptionHandler.trigger()``; resumed from that
+    run's checkpoint. The resumed steps' losses are held to the
+    uninterrupted run's within RESUME_RTOL. Returns the losses, the
+    seconds and the uninterrupted run's final params (read back from
+    its last checkpoint)."""
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.kernels import counters
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import transformer as T
+
+    shutil.rmtree(directory, ignore_errors=True)    # start from step 0
+    full_dir = os.path.join(directory, "uninterrupted")
+    stop_dir = os.path.join(directory, "preempted")
+    argv = SMALL_TRAIN_ARGV + ["--device", str(device)]
+    counters.reset()
+    t0 = time.perf_counter()
+    full = train_launch.main(argv + ["--ckpt-dir", full_dir], cfg=cfg)
+    full_s = time.perf_counter() - t0
+    args = train_launch.build_parser().parse_args(
+        argv + ["--ckpt-dir", stop_dir])
+    trainer, n_steps = train_launch.make_trainer(args, cfg)
+    log_step = trainer.log_fn
+
+    def stop_at(step, metrics):
+        log_step(step, metrics)
+        if step == TRAIN_STOP:
+            trainer.preemption.trigger()
+    trainer.log_fn = stop_at
+    try:
+        first = trainer.run(n_steps)
+    finally:
+        trainer.preemption.uninstall()
+    del trainer
+    saved = CheckpointManager(stop_dir).latest_step()
+    resumed = train_launch.main(argv + ["--ckpt-dir", stop_dir], cfg=cfg)
+    launches = counters.snapshot()
+    if not (first.preempted and first.final_step == TRAIN_STOP
+            and saved == TRAIN_STOP and resumed.final_step == full.final_step
+            and resumed.steps_run == full.final_step - TRAIN_STOP):
+        raise AssertionError(f"preempted at {first.final_step} "
+                             f"({first.preempted}), resumed "
+                             f"{resumed.steps_run} steps to "
+                             f"{resumed.final_step}")
+    if launches:
+        raise AssertionError(f"training launched {launches}")
+    pairs = list(zip(first.losses + resumed.losses, full.losses))
+    rel = max(abs(a - b) / abs(b) for a, b in pairs)
+    if len(pairs) != full.final_step or rel > RESUME_RTOL:
+        raise AssertionError(f"resumed losses part from the uninterrupted "
+                             f"run's by {rel} > {RESUME_RTOL}")
+    if not full.losses[-1] < full.losses[0]:
+        raise AssertionError(f"loss did not fall: {full.losses}")
+    params = CheckpointManager(full_dir).restore(
+        {"params": T.init_model(None, cfg)}, device=device)["params"]
+    shutil.rmtree(directory, ignore_errors=True)
+    return {"params": params, "losses": full.losses,
+            "resumed_losses": resumed.losses,
+            "resume_max_rel_diff": rel, "uninterrupted_s": full_s,
+            "step_s": full.step_seconds,
+            "stragglers": len(full.stragglers)}
+
+
+def trained_model_quality(params, cfg, device) -> dict:
+    """tests/test_system.py on the card: base ppl; ranking (kernel 2) and
+    the three categories at p 0.3 with its ordering and slack; the
+    composite model served sparse (kernel 1) and dense; LoRA recovery of
+    an unstructured p 0.5 model."""
+    import torch
+    from repro_torch.core import lora as LO
+    from repro_torch.core.evaluate import perplexity
+    from repro_torch.core.pipeline import MosaicPipeline
+    from repro_torch.core.rank_controller import profile_model
+    from repro_torch.core.recipe import PruneRecipe
+    from repro_torch.core.registry import projections
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.kernels import counters
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train.train_step import value_and_grad
+
+    corpus = SyntheticCorpus(cfg.vocab, seed=0)
+
+    def ppl(p, c) -> float:
+        return perplexity(p, c, corpus.batches(8, 64, start=500, n=4))
+
+    out = {"ppl": {"base": ppl(params, cfg)}}
+    if not out["ppl"]["base"] < TRAINED_PPL_MAX:
+        raise AssertionError(f"base ppl {out['ppl']['base']}")
+    counters.reset()
+    art = profile_model(params, cfg, corpus.calibration_batches(8, 4, 64))
+    out["rank_launches"] = counters.snapshot()
+    want = {"wanda_partials": 2 * len(projections(cfg))}
+    if out["rank_launches"] != want:
+        raise AssertionError(f"ranking launched {out['rank_launches']}, "
+                             f"expected {want}")
+    served = None
+    for cat in ("unstructured", "composite", "structured"):
+        recipe = PruneRecipe(arch=cfg.name, p=0.3, category=cat,
+                             align_channels=16, block=16,
+                             stages=("plan", "prune", "pack", "report"))
+        res = MosaicPipeline(recipe).run(params, cfg, rank_artifact=art)
+        out["ppl"][cat] = ppl(res.params, res.cfg)
+        if cat == "composite":
+            served = res
+    p = out["ppl"]
+    if not (p["unstructured"] <= ORDER_SLACK * p["composite"]
+            and p["composite"] <= ORDER_SLACK * p["structured"]
+            and all(math.isfinite(v) for v in p.values())):
+        raise AssertionError(f"ppl ordering broken: {p}")
+
+    from repro_torch.serve.config import ServeConfig
+    serve = ServeConfig(max_seq=64, compute_dtype=torch.float32,
+                        cache_dtype=torch.float32)
+    prompt = corpus.batch(900, BATCH, PROMPT_LEN)[:, :PROMPT_LEN]
+    gens = {}
+    for name, sparse in (("sparse", True), ("dense", False)):
+        counters.reset()
+        toks, logits = Engine.from_artifact(served, serve, sparse=sparse
+                                            ).generate(prompt, PROMPT_LEN,
+                                                       return_logits=True)
+        gens[name] = (toks, logits, counters.snapshot())
+    n_plans = sum(1 for (_, name) in served.packed
+                  if name in ("gate", "up", "down"))
+    if gens["sparse"][2] != {"block_sparse": n_plans * PROMPT_LEN} \
+            or gens["dense"][2] or n_plans == 0:
+        raise AssertionError(f"serve launches {gens['sparse'][2]} / "
+                             f"{gens['dense'][2]}, {n_plans} plans")
+    out["served"] = {"plans": n_plans, "launches": gens["sparse"][2],
+                     **compare_generation(
+                         gens["sparse"][0], gens["sparse"][1],
+                         gens["dense"][0], gens["dense"][1], PROMPT_LEN,
+                         LOGIT_ATOL)}
+
+    art = profile_model(params, cfg, corpus.calibration_batches(4, 4, 32))
+    res = MosaicPipeline(PruneRecipe(
+        arch=cfg.name, p=0.5, category="unstructured", block=16,
+        stages=("plan", "prune", "report"))).run(params, cfg,
+                                                 rank_artifact=art)
+    out["ppl"]["unstructured_p0.5"] = ppl(res.params, res.cfg)
+    adapters = LO.init_lora(torch.Generator(device=device).manual_seed(1),
+                            res.params, res.cfg, rank=4)
+    grad = value_and_grad(lambda ad, t, lb: T.loss_fn(
+        LO.merge_lora(res.params, res.cfg, ad, rank=4), res.cfg, t, lb,
+        compute_dtype=torch.float32))
+    ocfg = OPT.OptConfig(lr=5e-3, warmup_steps=5, total_steps=60,
+                         weight_decay=0.0)
+    ostate = OPT.init_opt(adapters, ocfg)
+    counters.reset()
+    for tokens, labels in corpus.batches(16, 64, start=200, n=40):
+        _, g = grad(adapters, torch.from_numpy(tokens).to(device),
+                    torch.from_numpy(labels).to(device))
+        adapters, ostate, _ = OPT.apply_updates(adapters, g, ostate, ocfg)
+    if counters.snapshot():
+        raise AssertionError(f"LoRA steps launched {counters.snapshot()}")
+    out["ppl"]["lora_recovered_p0.5"] = ppl(
+        LO.merge_lora(res.params, res.cfg, adapters, rank=4), res.cfg)
+    if not out["ppl"]["lora_recovered_p0.5"] < out["ppl"][
+            "unstructured_p0.5"]:
+        raise AssertionError(f"LoRA did not recover: {out['ppl']}")
+    return out
+
+
+def phase_train(device, gpu: str) -> dict:
+    """The training path at full width, then the first trained model."""
+    import torch
+    t0 = time.perf_counter()
+    full = []
+    for arch, n_layers, steps in TRAIN_FULL:
+        rec = train_full_width(arch, n_layers, steps, device)
+        log("train", gpu=gpu, **rec)
+        full.append(rec)
+    if not full[0]["loss_fell"]:
+        raise AssertionError(f"{full[0]['arch']}: loss did not fall: "
+                             f"{full[0]['losses']}")
+    full_s = time.perf_counter() - t0
+    cfg = small_train_config()
+    t1 = time.perf_counter()
+    run = train_with_resume(cfg, device, os.path.join(
+        HERE, "chiprun_out", "train_ckpt"))
+    quality = trained_model_quality(run.pop("params"), cfg, device)
+    small = {"arch": "small llama-style (tests/conftest.py::small_config)",
+             "steps": len(run["losses"]), "stop_at": TRAIN_STOP, **run,
+             **quality, "phase_s": time.perf_counter() - t1}
+    log("train", gpu=gpu, trained_model={
+        k: v for k, v in small.items()
+        if k not in ("losses", "resumed_losses", "step_s")},
+        first_losses=small["losses"][:3], last_losses=small["losses"][-3:],
+        median_step_ms=1e3 * sorted(small["step_s"])[len(small["step_s"])
+                                                     // 2])
+    print("[train] ppl " + json.dumps(small["ppl"]), flush=True)
+    torch.cuda.empty_cache()
+    return {"gpu": gpu, "full_width": full, "full_width_s": full_s,
+            "trained": small, "phase_s": time.perf_counter() - t0}
+
+
 def kernel_table(main: dict, cont: dict, moe: dict, quant: dict,
                  moe_quant: dict, ssm: dict, cases: dict) -> dict:
     """The contract's kernel line: one representative case per kernel, at
@@ -3575,7 +3894,11 @@ def main() -> int:
     t_hybrid = time.perf_counter()
     hybrid_info = phase_hybrid(device, gpu)
     hybrid_info["phase_s"] = time.perf_counter() - t_hybrid
-    log("phases", prune_side_s=prune_side_info["phase_s"],
+    torch.cuda.empty_cache()
+    train_info = phase_train(device, gpu)
+    log("phases", train_s=train_info["phase_s"],
+        train_full_width_s=train_info["full_width_s"],
+        train_small_s=train_info["trained"]["phase_s"], prune_side_s=prune_side_info["phase_s"],
         moe_expert_removal_s=moe_info["expert_removal"]["phase_s"],
         ssm_s=ssm_info["phase_s"],
         ssm_prefill_s=ssm_info["prefill"]["phase_s"],
@@ -3608,7 +3931,7 @@ def main() -> int:
               "quant": quant_info, "moe_quant": moe_quant_info,
               "quant_grouped_block_sparse_cases": qgb_cases,
               "quant_ragged_block_sparse_cases": qrg_cases,
-              "ssm": ssm_info, "hybrid": hybrid_info,
+              "ssm": ssm_info, "hybrid": hybrid_info, "train": train_info,
               "table": table, "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -13,12 +13,18 @@ leaf as ``uint16`` bits of a bfloat16, and writes bf16 leaves the same
 way. Restore fills a tree of the shapes and dtypes it is given, so the
 caller decides the structure (``core.artifact`` derives it from the
 pruned config, as the JAX package does with ``eval_shape``).
+
+A save copies every leaf to the host before it returns; with
+``blocking=False`` a background thread then writes the files while the
+caller goes on (training continues while IO happens). ``wait`` joins
+that thread; the next save waits for it first.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import threading
 import time
 from typing import Any, Optional
 
@@ -55,14 +61,33 @@ class CheckpointManager:
         self.directory = directory
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+        self.save_seconds = 0.0
 
     # -------------------------------------------------------------- save
 
-    def save(self, step: int, tree: Any,
+    def save(self, step: int, tree: Any, blocking: bool = True,
              extra_meta: Optional[dict] = None) -> None:
-        """Copy every leaf to the host and write the step (blocking)."""
-        host = {_path_key(p): to_numpy(leaf) for p, leaf in iter_paths(tree)}
+        """Copy every leaf to the host, then write the step: here, or on
+        a background thread when ``blocking=False``. A CPU leaf is
+        cloned for a background write, so an in-place update after the
+        call does not reach the file."""
+        def snapshot(leaf):
+            if not blocking and leaf.device.type == "cpu":
+                leaf = leaf.detach().clone()
+            return to_numpy(leaf)
+        host = {_path_key(p): snapshot(leaf) for p, leaf in iter_paths(tree)}
         meta = {"step": step, "time": time.time(), **(extra_meta or {})}
+        self.wait()
+        if blocking:
+            self._write(step, host, meta)
+        else:
+            self._thread = threading.Thread(
+                target=self._write, args=(step, host, meta), daemon=True)
+            self._thread.start()
+
+    def _write(self, step: int, host: dict, meta: dict) -> None:
+        t0 = time.perf_counter()
         final = os.path.join(self.directory, f"step_{step:08d}")
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -73,6 +98,13 @@ class CheckpointManager:
         shutil.rmtree(final, ignore_errors=True)
         os.rename(tmp, final)
         self._gc()
+        self.save_seconds = time.perf_counter() - t0
+
+    def wait(self) -> None:
+        """Join the background write, if one is running."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
 
     def _gc(self) -> None:
         steps = self.all_steps()

@@ -35,3 +35,41 @@ def params_to_numpy(tree: Tree) -> Tree:
             t = t.float()
         return t.numpy()
     return tree_map(one, tree)
+
+
+# ------------------------------------------------- scanned <-> unrolled
+# A scanned config (``scan_layers=True``) stores ``params['blocks']`` in
+# the JAX package as one tree per pattern slot whose leaves carry a
+# leading ``n_periods`` axis; the port runs unrolled stacks, one tree per
+# layer. Layer ``i`` is slot ``i % P``, period ``i // P`` (P the pattern
+# length). The optimizer moments mirror the params, so the same pair
+# converts them.
+
+def unstack_blocks(slots, n_periods: int) -> list:
+    """Scanned blocks (a tuple of P slot trees, leaves (n_periods, ...))
+    -> the unrolled list of ``P * n_periods`` layer trees (views)."""
+    P = len(slots)
+    return [tree_map(lambda x, t=i // P: x[t], slots[i % P])
+            for i in range(P * n_periods)]
+
+
+def stack_blocks(blocks: list, period: int) -> tuple:
+    """The unrolled list of layer trees -> scanned blocks: a tuple of
+    ``period`` slot trees whose leaves stack the slot's layers along a new
+    leading axis (meta leaves stack to meta leaves)."""
+    n_periods = len(blocks) // period
+    out = []
+    for j in range(period):
+        layers = [blocks[t * period + j] for t in range(n_periods)]
+        out.append(_stack_trees(layers))
+    return tuple(out)
+
+
+def _stack_trees(trees: list):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack_trees([t[i] for t in trees])
+                           for i in range(len(first)))
+    return torch.stack(trees)

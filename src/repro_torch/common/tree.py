@@ -61,6 +61,21 @@ def leaves(tree: Tree) -> Iterator[torch.Tensor]:
         yield tree
 
 
+def zip_leaves(tree: Tree, *others: Tree) -> Iterator[tuple]:
+    """Yield ``(leaf, each other tree's entry at its path)``, walking
+    ``tree``'s structure by key, so the trees' dict orders need not
+    agree; an other tree's entry may itself be a subtree (a factored
+    optimizer moment's ``{row, col}``)."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from zip_leaves(tree[k], *(o[k] for o in others))
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from zip_leaves(sub, *(o[i] for o in others))
+    elif tree is not None:
+        yield (tree, *others)
+
+
 def tree_map(fn, tree: Tree) -> Tree:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}

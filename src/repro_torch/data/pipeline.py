@@ -3,10 +3,13 @@
 Every token has a small successor set with Zipf-distributed transition
 probabilities. Batches are a pure function of (seed, batch_index,
 shard), drawn with numpy, so the port and the JAX package see the same
-tokens for the same seed.
+tokens for the same seed. :class:`Prefetcher` draws them on a background
+thread while the card trains.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator, Optional
 
 import numpy as np
@@ -57,3 +60,31 @@ class SyntheticCorpus:
             bs = min(batch_size, n_samples - i)
             out.append(self.batch(seed_offset + i, bs, seq_len)[:, :-1])
         return out
+
+
+class Prefetcher:
+    """Background-thread prefetch with a bounded queue: the host draws
+    the next batches while the card runs the current step."""
+
+    def __init__(self, it: Iterator, depth: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._it = it
+        self._done = object()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        try:
+            for item in self._it:
+                self._q.put(item)
+        finally:
+            self._q.put(self._done)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._done:
+            raise StopIteration
+        return item

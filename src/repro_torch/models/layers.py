@@ -12,7 +12,9 @@ branches launch kernels on CUDA tensors: paged decode with
 ``paged_kernel`` (``kernels/paged_attention``) and causal prefill longer
 than ``DENSE_ATTN_MAX`` (``kernels/flash_attention``); on CPU tensors
 they run the plain versions, the latter the chunked path the JAX package
-runs.
+runs. With ``train`` (set by ``transformer.loss_fn``) a long causal
+sequence takes that chunked path on any device: it is the path the
+reference trains on, and the kernels have no backward pass.
 """
 from __future__ import annotations
 
@@ -294,7 +296,7 @@ def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
                     cache_index=None,
                     block_tables: Optional[torch.Tensor] = None,
                     n_valid: Optional[torch.Tensor] = None,
-                    paged_kernel: bool = False):
+                    paged_kernel: bool = False, train: bool = False):
     """Returns (out, new_cache). cache: {'k','v': (B, S_max, n_kv, D)};
     the step's K/V rows are written into it in place, at ``cache_index``
     (an int or 0-d tensor: the whole batch at one offset; a (B,) tensor:
@@ -305,7 +307,8 @@ def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
     {'k','v': (n_blocks, block_size, n_kv, D)}; ``n_valid`` (B,) masks
     right-padded positions of a padded (chunked) prefill, and
     ``paged_kernel`` sends decode steps (S == 1) through the
-    paged-attention op instead of the gather path."""
+    paged-attention op instead of the gather path. ``train`` sends a long
+    causal sequence without a cache through the plain chunked path."""
     dtype = x.dtype
     tap("attn_qkv", x)
     q = _project(x, params["q"].to(dtype))
@@ -343,7 +346,9 @@ def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
             out = _dense_attention(q, ck, cv, positions, kv_pos,
                                    causal=spec.causal, kv_valid=kv_pos < end)
     elif S > DENSE_ATTN_MAX and spec.causal:
-        out = _long_causal_attention(q, k, v, positions)
+        long_attention = (_chunked_causal_attention if train
+                          else _long_causal_attention)
+        out = long_attention(q, k, v, positions)
     else:
         out = _dense_attention(q, k, v, positions, positions,
                                causal=spec.causal)

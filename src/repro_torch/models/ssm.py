@@ -6,9 +6,11 @@ The port of ``repro/models/ssm.py``. A multi-token call computes the
 recurrence chunk-wise (arXiv:2405.21060): a quadratic attention-like
 intra-chunk term plus a linear inter-chunk state recurrence, through
 ``kernels/ssd_scan`` — the CUDA kernel on CUDA tensors, its plain version
-(``kernels/ssd_scan/ref.py::ssd_chunked``) on CPU tensors. A single
-decode step (``L == 1`` with a cache) runs the recurrence itself in plain
-torch, as the JAX package does.
+(``kernels/ssd_scan/ref.py::ssd_chunked``) on CPU tensors, and on any
+device with ``train`` (set by ``transformer.loss_fn``: the plain scan is
+the path the reference trains on, and the kernel has no backward pass).
+A single decode step (``L == 1`` with a cache) runs the recurrence
+itself in plain torch, as the JAX package does.
 The cache ``{'conv': (B, K-1, conv_dim), 'state': (B, H, P, N) f32}`` is
 updated in place and also returned.
 """
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models.layers import _randn, gen_device
 from repro_torch.models.specs import MambaSpec
 from repro_torch.models.taps import tap
@@ -93,9 +96,10 @@ def ssd_step(h: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
 
 
 def apply_mamba(params: dict, spec: MambaSpec, x: torch.Tensor,
-                cache: Optional[dict] = None) -> tuple:
+                cache: Optional[dict] = None, train: bool = False) -> tuple:
     """x: (B, L, d_model). cache: {'conv': (B, K-1, conv_dim), 'state':
-    (B, H, P, N) f32}, updated in place. Returns (out, new_cache)."""
+    (B, H, P, N) f32}, updated in place. ``train``: the chunked scan's
+    plain version on any device. Returns (out, new_cache)."""
     dtype = x.dtype
     B, L, _ = x.shape
     H, P, N = spec.n_heads, spec.head_dim, spec.d_state
@@ -116,7 +120,9 @@ def apply_mamba(params: dict, spec: MambaSpec, x: torch.Tensor,
     Cm = xbc[..., di + N:di + 2 * N]
 
     dt = _softplus(dt_raw.float() + params["dt_bias"].float())
-    A = -torch.exp(params["A_log"].float())                # (H,) < 0
+    # exp in the leaf's dtype, as the JAX package does (bf16 when a
+    # train step casts every leaf; the engines keep A_log in f32)
+    A = -torch.exp(params["A_log"]).float()                # (H,) < 0
     da = dt * A                                            # (B, L, H)
     xt = xs * dt[..., None].to(dtype)
 
@@ -124,9 +130,9 @@ def apply_mamba(params: dict, spec: MambaSpec, x: torch.Tensor,
         y = ssd_step(cache["state"], da[:, 0], Bm[:, 0], Cm[:, 0],
                      xt[:, 0])[:, None].to(dtype)          # (B, 1, H, P)
     else:
-        y, new_state = ssd_ops.ssd_scan(
-            xt, da, Bm, Cm, spec.chunk,
-            cache["state"] if cache is not None else None)
+        scan = ssd_ref.ssd_chunked if train else ssd_ops.ssd_scan
+        y, new_state = scan(xt, da, Bm, Cm, spec.chunk,
+                            cache["state"] if cache is not None else None)
         if cache is not None:
             cache["state"].copy_(new_state)
 

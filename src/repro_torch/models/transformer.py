@@ -3,14 +3,21 @@
 Layers run in a Python loop over per-layer params (``blocks`` is a
 list). A layer's mixer is GQA attention or a Mamba-2 SSD mixer
 (``models/ssm.py``); its feed-forward a dense MLP, an MoE layer
-(``models/moe.py``) or none. Scanned stacks and frontend embeddings
-raise ``NotImplementedError`` until their slices are ported.
+(``models/moe.py``) or none. The forward runs unrolled stacks only: a
+scanned (period-stacked) checkpoint is unstacked at load
+(``common/interop.py::unstack_blocks``). Frontend embeddings raise
+``NotImplementedError`` until their slice is ported.
+
+``loss_fn`` runs the forward with ``train=True``: the plain attention
+and SSD paths the reference trains on (the kernels have no backward),
+each block under activation checkpointing when ``cfg.remat`` is set.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.tree import cast_tree
 from repro_torch.models import layers as L
@@ -170,10 +177,11 @@ def apply_block(block_params: dict, cfg: ModelConfig, spec: LayerSpec,
                 x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[dict], cache_index, layer: int = 0,
                 mlp_apply=None, block_tables=None, n_valid=None,
-                paged_kernel: bool = False):
+                paged_kernel: bool = False, train: bool = False):
     """Returns (x, new_cache, aux). ``mlp_apply(block_params, ffn_spec,
     h, layer)`` replaces the feed-forward, dense MLP or MoE, when given
-    (the serving block-sparse path; it drops the MoE aux loss)."""
+    (the serving block-sparse path; it drops the MoE aux loss).
+    ``train``: the mixers' plain paths (see ``forward``)."""
     _check_ported(spec)
     h = L.apply_norm(block_params["norm1"], cfg.norm, x)
     kind = "attn" if isinstance(spec.mixer, AttentionSpec) else "mamba"
@@ -182,11 +190,11 @@ def apply_block(block_params: dict, cfg: ModelConfig, spec: LayerSpec,
             block_params["attn"], spec.mixer, h, positions,
             cache["attn"] if cache is not None else None, cache_index,
             block_tables=block_tables, n_valid=n_valid,
-            paged_kernel=paged_kernel)
+            paged_kernel=paged_kernel, train=train)
     else:
         mix, nc = SSM.apply_mamba(block_params["mamba"], spec.mixer, h,
                                   cache["mamba"] if cache is not None
-                                  else None)
+                                  else None, train=train)
     new_cache = {kind: nc} if nc is not None else {}
     x = x + mix
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -209,7 +217,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             compute_dtype=torch.bfloat16, mlp_apply=None,
             block_tables: Optional[torch.Tensor] = None,
             n_valid: Optional[torch.Tensor] = None,
-            paged_kernel: bool = False):
+            paged_kernel: bool = False, train: bool = False):
     """Returns (logits, new_cache, aux_loss).
 
     tokens: (B, S) integer tensor on the params' device. cache +
@@ -223,6 +231,13 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     table row; ``n_valid`` (B,) masks right-padded prefill positions
     into the scratch block; ``paged_kernel`` sends paged decode steps
     (S == 1) through the paged-attention op.
+    train: the differentiable route ``loss_fn`` takes, and the engines
+    never do: attention over more than ``DENSE_ATTN_MAX`` causal
+    positions runs the plain chunked path and Mamba layers the plain
+    chunked scan, on any device, so no kernel is launched; with
+    ``cfg.remat`` each block runs under ``torch.utils.checkpoint`` (its
+    activations recomputed in the backward pass), as ``jax.checkpoint``
+    wraps each block in the JAX package.
     """
     _check_unrolled(cfg)
     if frontend_embeds is not None:
@@ -247,11 +262,15 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     new_cache = [] if cache is not None else None
     for i in range(cfg.n_layers):
         ci = cache[i] if cache is not None else None
-        x, nci, a = apply_block(params["blocks"][i], cfg, cfg.layer(i), x,
-                                positions, ci, cache_index, layer=i,
-                                mlp_apply=mlp_apply,
-                                block_tables=block_tables, n_valid=n_valid,
-                                paged_kernel=paged_kernel)
+        args = (params["blocks"][i], cfg, cfg.layer(i), x, positions, ci,
+                cache_index)
+        kw = dict(layer=i, mlp_apply=mlp_apply, block_tables=block_tables,
+                  n_valid=n_valid, paged_kernel=paged_kernel, train=train)
+        if train and cfg.remat:
+            x, nci, a = checkpoint(apply_block, *args, use_reentrant=False,
+                                   **kw)
+        else:
+            x, nci, a = apply_block(*args, **kw)
         aux_total = aux_total + a
         if cache is not None:
             new_cache.append(nci)
@@ -279,3 +298,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     return (logz - gold).mean()
+
+
+def loss_fn(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, compute_dtype=torch.bfloat16,
+            aux_weight: float = 0.01):
+    """Returns ``(ce + aux_weight * aux, (ce, aux))`` of a ``train=True``
+    forward: the training objective, differentiable in ``params``."""
+    logits, _, aux = forward(params, cfg, tokens,
+                             compute_dtype=compute_dtype, train=True)
+    ce = cross_entropy(logits, labels, cfg.vocab)
+    return ce + aux_weight * aux, (ce, aux)

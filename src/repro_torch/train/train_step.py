@@ -1,0 +1,126 @@
+"""Train step: loss and gradients with microbatch accumulation.
+
+Gradient accumulation keeps a large global batch's activations from
+living at once: the batch is split on its leading axis, each microbatch
+runs forward and backward, and the gradients are summed in
+``accum_dtype``, each divided by the number of microbatches. Activation
+checkpointing is the forward's (``cfg.remat``, see
+``models/transformer.py::forward``).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.common.tree import tree_map, zip_leaves
+from repro_torch.models import transformer as T
+from repro_torch.models.specs import ModelConfig
+from repro_torch.train import optimizer as OPT
+
+
+def cast_for_compute(params, dtype: torch.dtype):
+    """Every floating leaf to ``dtype``, differentiably, so gradients land
+    on the f32 masters. Unlike the engines' ``transformer.cast_params``
+    it keeps no leaf in f32: the JAX train step rounds the Mamba leaves
+    (``A_log``, ``D``, ``dt_bias``) to the compute dtype too."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    params)
+
+
+def value_and_grad(fn: Callable) -> Callable:
+    """``fn(tree, *args) -> (value, aux)`` to ``g(tree, *args) ->
+    ((value, aux), grads)``: the gradient of the 0-d ``value`` with
+    respect to every floating leaf of ``tree``, as a tree of the same
+    structure (a leaf the value does not depend on gets zeros), as
+    ``jax.value_and_grad(fn, has_aux=True)`` returns it. The leaves of
+    ``tree`` are not changed: the gradient is taken through detached
+    aliases of them."""
+    def wrapped(tree, *args):
+        inputs = []
+
+        def alias(x):
+            if not x.is_floating_point():
+                return x
+            a = x.detach().requires_grad_(True)
+            inputs.append(a)
+            return a
+        with torch.enable_grad():
+            shadow = tree_map(alias, tree)
+            value, aux = fn(shadow, *args)
+            grads = torch.autograd.grad(value, inputs, allow_unused=True)
+        it = iter(zip(inputs, grads))
+
+        def grad_of(x):
+            if not x.is_floating_point():
+                return None
+            a, g = next(it)
+            return torch.zeros_like(a) if g is None else g
+        out = tree_map(grad_of, tree)
+        return (value.detach(),
+                tree_map(lambda t: t.detach(), aux)), out
+    return wrapped
+
+
+def make_loss_fn(cfg: ModelConfig, compute_dtype=torch.bfloat16,
+                 aux_weight: float = 0.01) -> Callable:
+    """``loss_fn(params, tokens, labels) -> (loss, (ce, aux))`` over the
+    f32 masters cast to ``compute_dtype``."""
+    def loss_fn(params, tokens, labels):
+        return T.loss_fn(cast_for_compute(params, compute_dtype), cfg,
+                         tokens, labels, compute_dtype=compute_dtype,
+                         aux_weight=aux_weight)
+    return loss_fn
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OPT.OptConfig,
+                    n_microbatches: int = 1,
+                    compute_dtype=torch.bfloat16,
+                    aux_weight: float = 0.01,
+                    accum_dtype=torch.float32) -> Callable:
+    """Returns ``train_step(state, tokens, labels) -> (state,
+    metrics)``; ``state = {'params': ..., 'opt': ...}`` is updated in
+    place (``optimizer.apply_updates``) and returned. With
+    ``n_microbatches > 1`` the batch (tokens, labels: (B, S) tensors on
+    the params' device) is split on the leading axis; loss, ce and aux
+    are averaged the same way as the gradients."""
+    grad_fn = value_and_grad(make_loss_fn(cfg, compute_dtype, aux_weight))
+
+    def train_step(state, tokens, labels):
+        params = state["params"]
+        if n_microbatches == 1:
+            (loss, (ce, aux)), grads = grad_fn(params, tokens, labels)
+        else:
+            B = tokens.shape[0]
+            if B % n_microbatches:
+                raise ValueError(f"batch {B} does not split into "
+                                 f"{n_microbatches} microbatches")
+            mb = B // n_microbatches
+            grads = tree_map(lambda x: torch.zeros(x.shape,
+                                                   dtype=accum_dtype,
+                                                   device=x.device), params)
+            loss = ce = aux = torch.zeros((), device=tokens.device)
+            n = n_microbatches
+            for i in range(n):
+                rows = slice(i * mb, (i + 1) * mb)
+                (lo, (ce_i, aux_i)), g = grad_fn(params, tokens[rows],
+                                                 labels[rows])
+                for a, b in zip_leaves(grads, g):
+                    a.copy_(a.float() + b.float() / n)
+                loss = loss + lo / n
+                ce = ce + ce_i / n
+                aux = aux + aux_i / n
+        new_params, new_opt, stats = OPT.apply_updates(
+            params, grads, state["opt"], opt_cfg)
+        metrics = {"loss": loss, "ce": ce, "aux": aux, **stats}
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return train_step
+
+
+def init_train_state(gen: torch.Generator, cfg: ModelConfig,
+                     opt_cfg: OPT.OptConfig,
+                     param_dtype=torch.float32) -> dict:
+    """Random params on ``gen``'s device and a zero optimizer state."""
+    params = T.init_model(gen, cfg, dtype=param_dtype)
+    return {"params": params, "opt": OPT.init_opt(params, opt_cfg)}

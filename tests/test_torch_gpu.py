@@ -1191,3 +1191,127 @@ def test_sparsegpt_on_the_card_matches_the_cpu(cuda, target):
     err_g = np.linalg.norm(X @ wg.cpu().numpy() - X @ W)
     err_c = np.linalg.norm(X @ wc.numpy() - X @ W)
     assert abs(err_g - err_c) <= 0.01 * err_c
+
+
+# ------------------------------------------------ autograd and training
+
+def kernel_op_cases(device) -> dict:
+    """{launch counter: (op, args)}: every kernel op under
+    ``kernels/*/ops.py`` on small valid f32 inputs on ``device``."""
+    rng = np.random.default_rng(100)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a)).to(device)
+    x, w, bm = _plan_case(16, 10, 16)
+    counts, indices = bs_ops.plan_blocks(bm)
+    plan = pack_projection(_quant_weight(16, 80).to(device), block=16,
+                           quant="int8")
+    qx = t(rng.standard_normal((16, 64)).astype(np.float32))
+    q, k, v, tables, lengths = (t(a) for a in _paged_case(1, 16, 20))
+    ex, ew, _, ecounts, eindices = _expert_case(16, 60)
+    te = t(np.array([1, 1, 3, -1], np.int32))
+    xp = t(rng.standard_normal((64, ew.shape[1])).astype(np.float32))
+    stack = serve_sparse.pack_expert_projection(
+        _quant_weight(16, 83, E=5).to(device), block=16, ragged=True,
+        quant="int8")
+    xs = t(rng.standard_normal((5, 16, 64)).astype(np.float32))
+    qtiles = (stack.tiles, stack.counts, stack.indices, stack.slots,
+              stack.scales)
+    xt, da, Bm, Cm, _ = _ssd_case(1, 32, 2, 16, 8, 70, False,
+                                  torch.float32, device)
+    return {
+        "block_sparse": (bs_ops.blocksparse_matmul,
+                         (t(x), t(w), t(counts), t(indices), 16)),
+        "block_sparse_quant": (bs_ops.quant_blocksparse_matmul,
+                               (qx, plan.tiles, plan.counts, plan.indices,
+                                plan.slots, plan.scales, 16)),
+        "wanda_partials": (wm_ops.outlier_ratio,
+                           (t(w), t(np.abs(x[0]) + 0.5))),
+        "paged_attention": (pa_ops.paged_attention_decode,
+                            (q[:, None], k, v, tables, lengths)),
+        "flash_attention": (fa_ops.flash_attention_bshd, _flash_inputs(
+            1, 64, 1, 2, 64, torch.float32, 0, device)),
+        "grouped_block_sparse": (gbs_ops.grouped_blocksparse_matmul,
+                                 (t(ex), t(ew), t(ecounts), t(eindices),
+                                  16)),
+        "grouped_block_sparse_ragged": (
+            gbs_ops.ragged_blocksparse_matmul,
+            (xp, t(ew), t(ecounts), t(eindices), te, 16)),
+        "grouped_block_sparse_quant": (
+            gbs_ops.quant_grouped_blocksparse_matmul, (xs, *qtiles, 16)),
+        "grouped_block_sparse_ragged_quant": (
+            gbs_ops.quant_ragged_blocksparse_matmul,
+            (xp[:, :64].contiguous(), *qtiles, te, 16)),
+        "ssd_scan": (ssd_ops.ssd_scan, (xt, da, Bm, Cm, 8)),
+    }
+
+
+KERNEL_OPS = ("block_sparse", "block_sparse_quant", "wanda_partials",
+              "paged_attention", "flash_attention", "grouped_block_sparse",
+              "grouped_block_sparse_ragged", "grouped_block_sparse_quant",
+              "grouped_block_sparse_ragged_quant", "ssd_scan")
+
+
+def check_op_refuses_grad(device, kernel: str) -> dict:
+    """Each floating input of the op set to require grad makes it raise
+    with grad mode on, before any launch; with grad mode off the same
+    inputs run. Returns the launch counts of that last run."""
+    op, args = kernel_op_cases(device)[kernel]
+    floats = [a for a in args if torch.is_tensor(a) and a.is_floating_point()]
+    assert floats
+    counters.reset()
+    for a in floats:
+        a.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward pass"):
+            op(*args)
+        a.requires_grad_(False)
+    assert counters.snapshot() == {}
+    for a in floats:
+        a.requires_grad_(True)
+    with torch.no_grad():
+        op(*args)
+    return counters.snapshot()
+
+
+@pytest.mark.parametrize("kernel", KERNEL_OPS)
+def test_kernel_op_refuses_inputs_that_require_grad(cuda, kernel):
+    launches = check_op_refuses_grad(cuda, kernel)
+    assert launches.get(kernel, 0) >= 1
+
+
+def test_train_step_on_the_card_launches_no_kernel(cuda):
+    """A bf16 train step of a model with attention over more than
+    DENSE_ATTN_MAX positions, an MoE layer and a Mamba layer takes the
+    plain paths (no launch) and gives finite metrics; the same tokens
+    through a serving forward launch kernels 4 and 10."""
+    from repro_torch.models.specs import AttentionSpec, MLPSpec
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    attn = AttentionSpec(n_q=4, n_kv=2, head_dim=16)
+    cfg = ModelConfig(
+        name="t", d_model=64, vocab=256, vocab_pad_multiple=16,
+        pattern=(LayerSpec(attn, MLPSpec(d_ff=128)),
+                 LayerSpec(attn, MoESpec(n_experts=4, top_k=2, d_ff=64)),
+                 LayerSpec(MambaSpec(d_inner=128, d_state=16, head_dim=16,
+                                     chunk=8), None)),
+        n_periods=1, scan_layers=False, remat=True)
+    ocfg = OptConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = init_train_state(gen, cfg, ocfg)
+    toks = torch.randint(0, 256, (1, 3073), device=cuda, generator=gen)
+    step = make_train_step(cfg, ocfg, n_microbatches=1,
+                           compute_dtype=torch.bfloat16)
+    counters.reset()
+    for _ in range(2):
+        state, m = step(state, toks[:, :-1], toks[:, 1:])
+    torch.cuda.synchronize()
+    assert counters.snapshot() == {}
+    assert all(bool(torch.isfinite(m[k])) for k in
+               ("loss", "ce", "aux", "grad_norm"))
+    assert float(m["aux"]) > 0
+    with torch.no_grad():
+        T.forward(state["params"], cfg, toks[:, :-1],
+                  compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert counters.snapshot() == {"flash_attention": 2, "ssd_scan": 1}

@@ -54,7 +54,10 @@ def test_port_files_import_no_jax_and_no_repro():
             "kernels/grouped_block_sparse/ref.py", "core/quant.py",
             "models/ssm.py", "configs/mamba2_1_3b.py",
             "configs/jamba_v01_52b.py", "kernels/ssd_scan/kernel.py",
-            "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ref.py"} <= rel
+            "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ref.py",
+            "train/optimizer.py", "train/train_step.py", "train/trainer.py",
+            "distributed/fault.py", "core/lora.py", "launch/train.py",
+            "kernels/no_backward.py"} <= rel
     bad = {os.path.relpath(f, REPO): sorted(set(r for r in _imported_roots(f)
                                                 if r in FORBIDDEN))
            for f in files}
@@ -124,3 +127,11 @@ def test_serve_entry_raises_without_cuda_unless_cpu(monkeypatch, capsys):
     from repro_torch.launch import prune
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         prune.main(["--smoke", "--p", "0.5"])
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--smoke", "--steps", "2"])
+    with pytest.raises(SystemExit):
+        train.main(["--smoke", "--mesh", "host", "--device", "cpu"])
+    train.build_parser().print_help()
+    assert "--mesh host) is not ported yet" in " ".join(
+        capsys.readouterr().out.split())
