@@ -41,6 +41,15 @@ Phases, each printing one line of its own:
                 path, and the paged pool through the paged-attention
                 kernel. Counters are reset before and read after each
                 run; tokens must agree across the three runs;
+   gateway    — the HTTP front door (``serve.gateway.Gateway`` on
+                127.0.0.1, an ephemeral port) over the continuous
+                engine's paged pool through the paged-attention kernel,
+                on the same pruned llama3-8b: the 12 requests over HTTP
+                (eight streamed, four buffered, four sampled with their
+                own seed), every request's tokens equal to the same
+                requests through ``ContinuousEngine.run``, /healthz and
+                /metrics checked, exact launch counts; time to first
+                token and tokens/s over HTTP beside ``run``'s;
 5. trace      — ``torch.profiler`` over a warm window of decode steps:
                 the static engine sparse and dense, and the paged pool
                 with and without the paged-attention kernel; device time
@@ -156,7 +165,31 @@ Phases, each printing one line of its own:
                 categories at p 0.3 (kernel 2; unstructured <= 1.5 x
                 composite <= 1.5^2 x structured), LoRA recovery at p 0.5,
                 and the composite model served sparse (kernel 1) and
-                dense to equal tokens outside near ties.
+                dense to equal tokens outside near ties;
+13. archs     — the registry's other seven architectures at their
+                published widths (``ARCH_PHASES``: gemma-2b 3 layers,
+                phi3-medium-14b 1, qwen2-72b 1, nemotron-4-340b 1 with
+                bf16 params, qwen2-vl-2b 7, musicgen-large 8,
+                llama4-scout-17b-16e 1; random weights from seed 0), one
+                phase each, its tensors freed before the next: pruned
+                with golden-smoke's recipe, its arch replaced (llama4-
+                scout: no calibration, which the reference cannot run
+                either; plans packed from the unpruned params), the
+                bundle saved and loaded back with every leaf held to its
+                checksum, 4 x 32 tokens on the static engine sparse and
+                dense (llama4-scout: the four MoE ways) under the main
+                phase's gates, the dense run's prefill and decode held
+                to one full forward (dense archs); continuous runs on
+                the contiguous pool (a 3072-token prompt through kernel
+                4) and the paged pool through kernel 3 (gemma-2b,
+                musicgen-large, whose paged run is repeated dense;
+                llama4-scout's 8 MoE requests); a 3072-token prompt with
+                768 positions of frontend embeddings through
+                ``make_prefill_step`` and 15 decode steps held to one
+                full forward (qwen2-vl-2b, musicgen-large); kernel 1 at
+                nemotron's layer-0 up and down; kernels 6 and 7 at
+                llama4-scout's gate and down stacks. Each logs its
+                seconds and peak memory.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -312,7 +345,9 @@ FIRST_DESIGN_FLASH_MS = {
 PREFILL_ROWS = 512                 # 4 x 128 tokens, the continuous chunk
 # kernel 4 at head dims 192 and 256: (model, n_q, n_kv, head_dim) of the
 # JAX package's gemma-2b and nemotron-4-340b configurations
-WIDE_HEADS = (("gemma-2b", 8, 1, 256), ("nemotron-4-340b", 96, 8, 192))
+WIDE_HEADS = (("gemma-2b", 8, 1, 256), ("nemotron-4-340b", 96, 8, 192),
+              ("musicgen-large", 32, 32, 64),
+              ("llama4-scout-17b-16e", 40, 8, 128))
 WANDA_TPU = "src/repro/kernels/wanda_metric/kernel.py:29"
 # Kernel 2 of the first design (a Triton reduction, one program a 64 x
 # 256 tile), ms at each case of phase_kernels: this script's wanda_case
@@ -1221,6 +1256,14 @@ def bundle_round_trip(art, device, directory: str) -> tuple:
             pa != pb or a.device != b.device or not torch.equal(a, b)
             for (pa, a), (pb, b) in pairs):
         raise AssertionError("the loaded bundle's params differ")
+    check_bundle_documents(art, loaded)
+    return loaded, {"save_s": t1 - t0, "load_s": t2 - t1,
+                    "bundle_bytes": n_bytes, "leaves": len(pairs),
+                    "plans": len(art.packed)}
+
+
+def check_bundle_documents(art, loaded) -> None:
+    """The loaded bundle's config, targets and plans equal ``art``'s."""
     if loaded.cfg != art.cfg or loaded.targets != art.targets \
             or set(loaded.packed) != set(art.packed):
         raise AssertionError("the loaded bundle's config, targets or plan "
@@ -1228,9 +1271,6 @@ def bundle_round_trip(art, device, directory: str) -> tuple:
     for key, p in art.packed.items():
         if not plans_equal(p, loaded.packed[key]):
             raise AssertionError(f"the loaded plan {key} differs")
-    return loaded, {"save_s": t1 - t0, "load_s": t2 - t1,
-                    "bundle_bytes": n_bytes, "leaves": len(pairs),
-                    "plans": len(art.packed)}
 
 
 def plans_equal(p, q) -> bool:
@@ -2056,6 +2096,7 @@ def moe_static_runs(art, device, ways=MOE_WAYS) -> dict:
         runs[name] = {"tokens": toks, "logits": logits, "generate_s": dt,
                       "launches": counters.snapshot(),
                       "tokens_per_s_first": BATCH * NEW_TOKENS / dt}
+        del eng             # its cast params, before the next way's
     return runs
 
 
@@ -2563,7 +2604,8 @@ def _ragged_case(w, plan, spec, dtype, gen, label: str,
     return rec
 
 
-def phase_moe_kernels(moe: dict, device, quant: bool = False) -> tuple:
+def phase_moe_kernels(moe: dict, device, quant: bool = False,
+                      prefix: str = "") -> tuple:
     """Kernels 6 and 7 (with ``quant``: 8 and 9) against their plain
     versions at the MoE path's shapes: layer 0's pruned gate and down
     stacks, f32 and bf16; the grouped kernel at the 4 x 32 prefill (M 16)
@@ -2572,7 +2614,8 @@ def phase_moe_kernels(moe: dict, device, quant: bool = False) -> tuple:
     tick of RAGGED_TOKENS_MAX tokens. Without ``quant``, also kernel 6
     with one expert held bitwise to kernel 1 at both M, in both types
     (logged under ``one_expert``). The phase's seconds go to ``moe``
-    (``kernels_s``)."""
+    (``kernels_s``). ``prefix`` starts each case's label (another
+    model's stacks)."""
     import torch
     from repro_torch.serve.sparse import RAGGED_TOKENS_MAX
     t0 = time.perf_counter()
@@ -2586,12 +2629,13 @@ def phase_moe_kernels(moe: dict, device, quant: bool = False) -> tuple:
         for dtype in (torch.float32, torch.bfloat16):
             for groups, tokens in ((BATCH, PROMPT_LEN), (1, LONG_PROMPT)):
                 c = _grouped_case(w, plan, spec, dtype, gen,
-                                  f"layer0.{name}", quant, groups, tokens)
+                                  f"{prefix}layer0.{name}", quant, groups,
+                                  tokens)
                 c["tile"] = _grouped_tile_record(c, dtype)
                 grouped.append(c)
             for tokens in (BATCH, RAGGED_TOKENS_MAX):
                 ragged.append(_ragged_case(w, plan, spec, dtype, gen,
-                                           f"layer0.{name}", quant,
+                                           f"{prefix}layer0.{name}", quant,
                                            tokens))
     q = "quant_" if quant else ""
     for c in grouped:
@@ -3760,6 +3804,632 @@ def phase_train(device, gpu: str) -> dict:
             "trained": small, "phase_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------- gateway phase
+
+GATEWAY_SAMPLED = (2, 3, 4, 5)     # uids sent with a temperature and a seed
+GATEWAY_BUFFERED = (3, 6, 7, 8)    # uids sent with "stream": false
+GATEWAY_TEMPERATURE = 0.8
+GATEWAY_SEND_GAP_S = 0.02          # sends in uid order, so uids match
+
+
+def gateway_requests(vocab: int) -> list:
+    """The continuous phase's 12 requests, four of them sampled at
+    GATEWAY_TEMPERATURE with their own seed."""
+    import dataclasses
+    return [dataclasses.replace(r, temperature=GATEWAY_TEMPERATURE,
+                                seed=1000 + r.uid)
+            if r.uid in GATEWAY_SAMPLED else r
+            for r in continuous_requests(vocab)]
+
+
+async def _http(port: int, request: bytes, on_line=None) -> tuple:
+    """One request to the gateway on 127.0.0.1; returns (status, body
+    lines). ``on_line(line)`` sees each body line as it arrives."""
+    import asyncio
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(request)
+    await writer.drain()
+    head = await reader.readuntil(b"\r\n\r\n")
+    lines = []
+    while True:
+        line = await reader.readline()
+        if not line:
+            break
+        if line.strip():
+            lines.append(line)
+            if on_line is not None:
+                on_line(line)
+    writer.close()
+    await writer.wait_closed()
+    return int(head.split(b" ", 2)[1]), lines
+
+
+def _post_generate(body: dict) -> bytes:
+    payload = json.dumps(body).encode()
+    return (b"POST /generate HTTP/1.1\r\nHost: chip-smoke\r\n"
+            b"Content-Length: %d\r\n\r\n" % len(payload) + payload)
+
+
+def serve_gateway(art, device, reqs: list, serve) -> dict:
+    """``reqs`` over HTTP through a ``Gateway`` on 127.0.0.1 (an
+    ephemeral port) over a ``ContinuousEngine`` on ``serve``: sent in uid
+    order GATEWAY_SEND_GAP_S apart, the GATEWAY_BUFFERED ones with
+    ``"stream": false``. Checks /healthz and /metrics; returns each
+    request's tokens, time to first token (streamed ones), the launches
+    while serving and the engine's stats."""
+    import asyncio
+    from repro_torch.kernels import counters
+    from repro_torch.serve.batching import ContinuousEngine
+    from repro_torch.serve.gateway import Gateway
+
+    engine = ContinuousEngine.from_artifact(art, serve)
+
+    async def go():
+        gw = await Gateway(engine, host="127.0.0.1", port=0).start()
+        status, lines = await _http(gw.port, b"GET /healthz HTTP/1.1\r\n\r\n")
+        if status != 200 or json.loads(lines[0]) != {"status": "ok"}:
+            raise AssertionError(f"gateway /healthz: {status} {lines}")
+        first: dict = {}
+        sent: dict = {}
+
+        async def one(r):
+            body = {"tokens": r.prompt, "max_new_tokens": r.max_new_tokens}
+            if r.prefix_id is not None:
+                body["prefix_id"] = r.prefix_id
+            if r.temperature is not None:
+                body.update(temperature=r.temperature, seed=r.seed)
+            if r.uid in GATEWAY_BUFFERED:
+                body["stream"] = False
+            await asyncio.sleep(r.uid * GATEWAY_SEND_GAP_S)
+            sent[r.uid] = time.perf_counter()
+
+            def on_line(line):
+                first.setdefault(r.uid, time.perf_counter())
+            return await _http(gw.port, _post_generate(body), on_line)
+
+        t0 = time.perf_counter()
+        results = await asyncio.gather(*[one(r) for r in reqs])
+        wall = time.perf_counter() - t0
+        status, lines = await _http(gw.port, b"GET /metrics HTTP/1.1\r\n\r\n")
+        metrics = json.loads(lines[0])
+        fin, stats = await gw.close()
+        return results, wall, metrics, fin, stats, first, sent
+
+    sync(device)
+    counters.reset()
+    results, wall, metrics, fin, stats, first, sent = asyncio.run(go())
+    sync(device)
+    launches = counters.snapshot()
+    out = {"tokens": {}, "ttft_ms": {}, "stage_ms": {}, "shared": {}}
+    for r, (status, lines) in zip(reqs, results):
+        events = [json.loads(ln) for ln in lines]
+        done = events[-1]
+        if status != 200 or done["event"] != "done":
+            raise AssertionError(f"gateway uid {r.uid}: HTTP {status}, "
+                                 f"last event {done}")
+        if done["uid"] != r.uid:
+            raise AssertionError(f"gateway: request {r.uid} got uid "
+                                 f"{done['uid']} (sent out of order)")
+        toks = done["tokens"]
+        if r.uid not in GATEWAY_BUFFERED:
+            streamed = [e["token"] for e in events if e["event"] == "token"]
+            if streamed != toks:
+                raise AssertionError(f"gateway uid {r.uid}: the stream "
+                                     f"disagrees with its done event")
+            out["ttft_ms"][r.uid] = (first[r.uid] - sent[r.uid]) * 1e3
+        elif len(events) != 1:
+            raise AssertionError(f"gateway uid {r.uid}: a buffered reply "
+                                 f"of {len(events)} events")
+        out["tokens"][r.uid] = toks
+        out["stage_ms"][r.uid] = done["metrics"]
+        out["shared"][r.uid] = done["prompt_blocks_shared"]
+    counts = metrics["metrics"]["counters"]
+    if counts.get("requests.finished") != len(reqs) \
+            or metrics["stats"].get("finished") != len(reqs) \
+            or metrics["stats"].get("in_flight") != 0:
+        raise AssertionError(f"gateway /metrics: {metrics['stats']}, "
+                             f"{counts}")
+    if len(fin) != len(reqs) or stats.rejected:
+        raise AssertionError(f"gateway: {len(fin)} finished, "
+                             f"{stats.reject_reasons} rejected")
+    n_tok = sum(len(t) for t in out["tokens"].values())
+    out.update(launches=launches, wall_s=wall, generated_tokens=n_tok,
+               tokens_per_s=n_tok / wall, stats=stats.to_dict(),
+               metrics_counters=counts)
+    return out
+
+
+def phase_gateway(main: dict, device) -> dict:
+    """The HTTP front door over the continuous engine's paged pool (the
+    paged-attention kernel at decode) on the main phase's pruned llama3-8b
+    (4 layers, full width): the 12 continuous requests over HTTP, eight
+    streamed and four buffered, four sampled with their own seed; every
+    request's tokens equal the same requests through
+    ``ContinuousEngine.run`` on the same configuration (greedy and the
+    seeded counter-based sampler alike). Time to first token and
+    tokens/s over HTTP beside ``run``'s: recorded, not gated."""
+    import torch
+    from repro_torch.serve.batching import ContinuousEngine
+    from repro_torch.serve.metrics import stage_latencies_ms
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    art = main["art"]
+    serve = continuous_config(block_size=BLOCK_SIZE,
+                              prefill_chunk=PREFILL_CHUNK, paged_kernel=True)
+    reqs = gateway_requests(art.cfg.vocab)
+    fin, stats = ContinuousEngine.from_artifact(art, serve).run(reqs)
+    sync(device)
+    direct = {f.request.uid: f for f in fin}
+    if sorted(direct) != [r.uid for r in reqs] or stats.rejected:
+        raise AssertionError(f"gateway's direct run: {stats.to_dict()}")
+    gw = serve_gateway(art, device, reqs, serve)
+    bad = [u for u, f in direct.items() if gw["tokens"][u] != f.tokens]
+    if bad:
+        raise AssertionError(f"gateway tokens differ from run's for uids "
+                             f"{bad} (prompt blocks shared: http "
+                             f"{gw['shared']}, run "
+                             f"{ {u: f.prompt_blocks_shared for u, f in direct.items()} })")
+    L = art.cfg.n_layers
+    ffn_packed = sum(1 for (_, name) in art.packed
+                     if name in ("gate", "up", "down"))
+    st = gw["stats"]
+    want = {"block_sparse": ffn_packed * (st["prefill_chunks"]
+                                          + st["ticks"]),
+            "paged_attention": L * st["ticks"]}
+    expect_launches("gateway", gw["launches"], want)
+    run_ttft = {}
+    for u, f in direct.items():
+        ms = stage_latencies_ms(f)
+        run_ttft[u] = ms["queue_ms"] + ms["prefill_ms"]
+    out = {"requests": len(reqs), "streamed": len(reqs) - len(
+               GATEWAY_BUFFERED), "buffered": len(GATEWAY_BUFFERED),
+           "sampled": len(GATEWAY_SAMPLED), "tokens_equal_run": True,
+           "launches": gw["launches"], "expected_launches": want,
+           "http_wall_s": gw["wall_s"],
+           "http_tokens_per_s": gw["tokens_per_s"],
+           "run_wall_s": stats.wall_s,
+           "run_tokens_per_s": stats.tokens_per_s,
+           "http_ttft_ms": gw["ttft_ms"], "run_ttft_ms": run_ttft,
+           "http_stage_ms": gw["stage_ms"],
+           "prompt_blocks_shared": gw["shared"],
+           "run_prompt_blocks_shared": {
+               u: f.prompt_blocks_shared for u, f in direct.items()},
+           "http_stats": st,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(device),
+           "phase_s": time.perf_counter() - t0}
+    log("gateway", **out)
+    return out
+
+
+# ------------------------------------------- the registry's other archs
+
+# The seven architectures of the registry beside the main path's, the MoE
+# phase's and the SSM phases': (arch, layers on the card). Widths as
+# published; depth cut to fit one card and the run's time (the bundle
+# round trip, 3-5 s a GB, takes most of a phase); random weights from
+# seed 0, f32 but where ARCH_PARAMS_DTYPE says otherwise.
+ARCH_PHASES = (("gemma-2b", 3), ("phi3-medium-14b", 1), ("qwen2-72b", 1),
+               ("nemotron-4-340b", 1), ("qwen2-vl-2b", 7),
+               ("musicgen-large", 8), ("llama4-scout-17b-16e", 1))
+# nemotron-4-340b's f32 prune peaks above the card's 80 GB (its 37.7 GB
+# embedding and head among 51.6 GB of f32 params): its params are bf16,
+# served at f32 compute as every other phase (the engines cast them once)
+ARCH_PARAMS_DTYPE = {"nemotron-4-340b": "bfloat16"}
+ARCH_CONTINUOUS = ("gemma-2b", "musicgen-large")  # + llama4-scout's paged
+ARCH_REQUESTS = 6                  # one LONG_PROMPT prompt, five others
+ARCH_SLOTS = 4
+FRONTEND_NEW = 16                  # tokens decoded after a frontend prefill
+DIGEST_CHUNK = 1 << 26             # elements a checksum step reads
+
+
+def arch_config(arch: str, layers: int):
+    from repro_torch.configs.registry import get_config
+    full = get_config(arch)
+    return full, full.replace(n_periods=layers // len(full.pattern),
+                              scan_layers=False)
+
+
+def leaf_digest(t) -> tuple:
+    """A leaf's shape and two sums over the bits of its values as f32
+    (the dtype a bundle's params load into, in both packages), the
+    second weighted by position: a Fletcher-style checksum, taken on the
+    card in DIGEST_CHUNK steps, so a leaf is checked without a second
+    copy of it in memory."""
+    import torch
+    flat = t.detach().reshape(-1)
+    s1 = s2 = 0
+    for o in range(0, flat.numel(), DIGEST_CHUNK):
+        c = flat[o:o + DIGEST_CHUNK].float().view(torch.int32).long()
+        pos = torch.arange(o + 1, o + 1 + c.numel(), device=c.device)
+        s1 += int(c.sum())
+        s2 += int((c * pos).sum())
+    return tuple(t.shape), s1, s2
+
+
+def bundle_round_trip_digests(art, device, directory: str) -> tuple:
+    """Save ``art`` into ``directory``, drop its params from the card,
+    load the bundle back onto the card, and hold every loaded leaf to the
+    saved leaf's ``leaf_digest`` (its values; a bf16 leaf loads as f32,
+    as the reference restores into its config's f32 shapes) and the
+    config, targets and plans to ``art``'s exactly. Returns (loaded
+    artifact, record)."""
+    import torch
+    from repro_torch.common.tree import iter_paths
+    from repro_torch.core.artifact import PrunedArtifact
+    want = [(p, leaf_digest(t)) for p, t in iter_paths(art.params)]
+    t0 = time.perf_counter()
+    art.save(directory)
+    t1 = time.perf_counter()
+    n_bytes = sum(os.path.getsize(os.path.join(root, f))
+                  for root, _, files in os.walk(directory) for f in files)
+    art.params = None
+    torch.cuda.empty_cache()
+    loaded = PrunedArtifact.load(directory, device)
+    sync(device)
+    t2 = time.perf_counter()
+    got = [(p, leaf_digest(t)) for p, t in iter_paths(loaded.params)]
+    if got != want or any(t.device != device or t.dtype != torch.float32
+                          for _, t in iter_paths(loaded.params)):
+        raise AssertionError("the loaded bundle's params differ")
+    check_bundle_documents(art, loaded)
+    return loaded, {"save_s": t1 - t0, "load_s": t2 - t1,
+                    "bundle_bytes": n_bytes, "leaves": len(got),
+                    "plans": len(art.packed)}
+
+
+def expect_launches(label: str, got: dict, want: dict) -> None:
+    """Exact launch counts (experts-computed counters aside), none zero."""
+    got = {k: v for k, v in got.items()
+           if not k.endswith("_experts_computed")}
+    if got != want or not all(want.values()):
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def full_forward_check(art, device, run: dict) -> dict:
+    """The dense static run's prefill and decode logits through the cache
+    against one full forward (no cache) of the prompt plus the generated
+    tokens: within LOGIT_ATOL at f32."""
+    import torch
+    from repro_torch.models import transformer as T
+    toks, logits = run["tokens"], run["logits"]
+    with torch.no_grad():
+        full, _, _ = T.forward(art.params, art.cfg, toks[:, :-1],
+                               compute_dtype=torch.float32)
+    rows = full[:, PROMPT_LEN - 1:].transpose(0, 1)     # (N, B, V)
+    err = float((rows - logits).abs().max())
+    if not err <= LOGIT_ATOL:
+        raise AssertionError(f"prefill + decode vs one full forward: "
+                             f"{err} > {LOGIT_ATOL}")
+    return {"max_abs_err": err, "positions": int(rows.shape[0])}
+
+
+def arch_requests(vocab: int) -> list:
+    """A continuous run's traffic from seed 0: uid 0 a LONG_PROMPT-token
+    prompt (the contiguous pool prefills it through kernel 4), the others
+    PROMPT_RANGE prompts; NEW_RANGE new tokens each."""
+    import numpy as np
+    from repro_torch.serve.scheduler import Request
+    rng = np.random.default_rng(0)
+    lo, hi = PROMPT_RANGE
+    lens = [LONG_PROMPT] + [int(rng.integers(lo, hi + 1))
+                            for _ in range(ARCH_REQUESTS - 1)]
+    return [Request(uid=uid, prompt=rng.integers(1, vocab, n).tolist(),
+                    max_new_tokens=int(rng.integers(NEW_RANGE[0],
+                                                    NEW_RANGE[1] + 1)))
+            for uid, n in enumerate(lens)]
+
+
+def arch_serve_config(**kw):
+    import torch
+    from repro_torch.serve.config import ServeConfig
+    return ServeConfig(max_slots=ARCH_SLOTS, max_seq=MAX_SEQ,
+                       compute_dtype=torch.float32,
+                       cache_dtype=torch.float32, **kw)
+
+
+def arch_continuous(art, device, dense_too: bool) -> dict:
+    """ARCH_REQUESTS requests three ways: the contiguous pool (the long
+    prompt's prefill through kernel 4), the paged pool through kernel 3,
+    and (``dense_too``) the paged pool with dense FFNs; exact launch
+    counts, tokens held to the contiguous run's outside near ties."""
+    L = art.cfg.n_layers
+    ffn_packed = sum(1 for (_, name) in art.packed
+                     if name in ("gate", "up", "down"))
+    reqs = arch_requests(art.cfg.vocab)
+    ways = [("contiguous", True, {}),
+            ("paged-kernel", True, {"block_size": BLOCK_SIZE,
+                                    "prefill_chunk": PREFILL_CHUNK,
+                                    "paged_kernel": True})]
+    if dense_too:
+        ways.append(("paged-kernel-dense", False, ways[1][2]))
+    runs = []
+    for label, sparse, kw in ways:
+        r = serve_continuous(art, device, label, reqs,
+                             arch_serve_config(**kw), sparse=sparse)
+        want = {}
+        if sparse:
+            want["block_sparse"] = ffn_packed * (r["prefill_chunks"]
+                                                 + r["ticks"])
+        if label == "contiguous":
+            want["flash_attention"] = L            # the one long prompt
+        else:
+            want["paged_attention"] = L * r["ticks"]
+        expect_launches(f"{art.cfg.name} {label}", r["launches"], want)
+        r["expected_launches"] = want
+        runs.append(r)
+    agreement = {r["label"]: compare_runs(art, device, runs[0], r)
+                 for r in runs[1:]}
+    return {"runs": [{k: v for k, v in r.items()
+                      if k not in ("tokens", "prompts")} for r in runs],
+            "agreement": agreement}
+
+
+def frontend_prefill_check(art, device) -> dict:
+    """A LONG_PROMPT-token prompt whose first frontend_frac x LONG_PROMPT
+    positions are frontend embeddings (random, seed 0): ``make_prefill_
+    step`` with them (kernel 4 in every layer, kernel 1 for the packed
+    FFNs), FRONTEND_NEW - 1 greedy decode steps, held to one full
+    ``forward`` with the same embeddings over the prompt and the
+    generated tokens (right-padded to a multiple of 1024): every step's
+    logits within LOGIT_ATOL."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import counters
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import (make_prefill_step,
+                                          make_serve_step,
+                                          make_sparse_mlp_apply)
+    cfg, params = art.cfg, art.params
+    F = int(cfg.frontend_frac * LONG_PROMPT)
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(1, cfg.vocab, (1, LONG_PROMPT)),
+                             device=device)
+    fe = torch.as_tensor(rng.standard_normal((1, F, cfg.d_model)),
+                         dtype=torch.float32, device=device)
+    mlp = make_sparse_mlp_apply(art.packed)
+    prefill = make_prefill_step(cfg, torch.float32, mlp)
+    step = make_serve_step(cfg, torch.float32, mlp)
+    V = cfg.vocab
+    sync(device)
+    counters.reset()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cache = T.init_cache(cfg, 1, LONG_PROMPT + FRONTEND_NEW,
+                             torch.float32, device)
+        logits, cache = prefill(params, prompt, cache, fe)
+        rows = [logits[:, -1].float()]
+        toks = [int(rows[-1][0, :V].argmax())]
+        for i in range(FRONTEND_NEW - 1):
+            last, cache = step(params, cache,
+                               torch.tensor([[toks[-1]]], device=device),
+                               LONG_PROMPT + i)
+            rows.append(last.float())
+            toks.append(int(last[0, :V].argmax()))
+        sync(device)
+        cached_s = time.perf_counter() - t0
+        # right-padded to a multiple of 1024, as a causal prefill longer
+        # than DENSE_ATTN_MAX takes it: the padding cannot reach back
+        seq = torch.cat([prompt, torch.tensor([toks[:-1]], device=device)],
+                        dim=1)
+        seq = torch.nn.functional.pad(seq, (0, -seq.shape[1] % 1024),
+                                      value=1)
+        full, _, _ = T.forward(params, cfg, seq, frontend_embeds=fe,
+                               compute_dtype=torch.float32, mlp_apply=mlp)
+    sync(device)
+    launches = counters.snapshot()
+    ffn_packed = sum(1 for (_, name) in art.packed
+                     if name in ("gate", "up", "down"))
+    want = {"flash_attention": 2 * cfg.n_layers,   # the prefill, the full
+            "block_sparse": ffn_packed * (FRONTEND_NEW + 1)}
+    expect_launches(f"{cfg.name} frontend", launches, want)
+    err = float((full[0, LONG_PROMPT - 1:LONG_PROMPT - 1 + FRONTEND_NEW]
+                 - torch.cat(rows)).abs().max())
+    if not err <= LOGIT_ATOL or not bool(torch.isfinite(full).all()):
+        raise AssertionError(f"{cfg.name}: frontend prefill + decode vs "
+                             f"one full forward: {err} > {LOGIT_ATOL}")
+    return {"prompt": LONG_PROMPT, "frontend_positions": F,
+            "decoded": FRONTEND_NEW, "launches": launches,
+            "max_abs_err": err, "prefill_and_decode_s": cached_s}
+
+
+def phase_arch(arch: str, layers: int, device, gpu: str,
+               cases: dict) -> dict:
+    """One architecture at its published widths and ``layers`` layers:
+    pruned with golden-smoke's recipe (its arch replaced; llama4-scout,
+    whose calibration the reference cannot run either, gets plans packed
+    from its unpruned params instead), the bundle saved and loaded back
+    (every leaf held to its checksum), 4 prompts x NEW_TOKENS greedy
+    tokens on the static engine sparse and dense (MoE: the four ways),
+    the dense run's prefill and decode held to one full forward (but for
+    MoE); then what the arch adds: continuous runs (gemma-2b,
+    musicgen-large, llama4-scout), the frontend prefill (qwen2-vl-2b,
+    musicgen-large), kernel 1 at
+    nemotron-4-340b's layer-0 up and down, kernels 6 and 7 at
+    llama4-scout's layer-0 gate and down stacks (appended to ``cases``).
+    Logs its seconds and peak memory."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.common.tree import param_count
+    from repro_torch.core.pipeline import MosaicPipeline
+    from repro_torch.core.recipe import PruneRecipe
+    from repro_torch.core.registry import projections
+    from repro_torch.kernels import counters
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.sparse import RAGGED_TOKENS_MAX, flop_savings
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    full, cfg = arch_config(arch, layers)
+    moe = arch == "llama4-scout-17b-16e"
+    recipe = PruneRecipe.load(os.path.join(HERE, "recipes",
+                                           "golden-smoke.json")).replace(
+        arch=arch)
+    stages = None
+    if moe:          # no calibration: plans from the unpruned params
+        recipe = recipe.replace(ragged_moe=True)
+        stages = ("pack", "report")
+    log(arch, d_model=cfg.d_model, vocab=cfg.vocab,
+        layer=str(cfg.layer(0)),
+        depth_cut=f"n_periods {full.n_periods} -> {cfg.n_periods}",
+        recipe="recipes/golden-smoke.json" + (
+            " (pack and report only)" if moe else ""))
+    dtype = ARCH_PARAMS_DTYPE.get(arch, "float32")
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device=device).manual_seed(0), cfg,
+                          dtype=getattr(torch, dtype))
+    n_params = param_count(params)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    counters.reset()
+    art = MosaicPipeline(recipe, stages).run(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    prune_launches = counters.snapshot()
+    want = {} if moe else {"wanda_partials": 2 * len(projections(cfg))}
+    expect_launches(f"{arch} prune", prune_launches, want)
+    st = art.report["stage_seconds"]
+    out = {"gpu": gpu, "layers": cfg.n_layers, "params": n_params,
+           "params_dtype": dtype, "init_s": init_s,
+           "profile_s": st.get("rank"), "prune_s": st.get("prune"),
+           "pack_s": st.get("pack"), "prune_launches": prune_launches,
+           "category": art.report.get("category"),
+           "params_after": art.report["params_after"],
+           "pruned_layer0": str(art.cfg.layer(0)),
+           "n_packed": len(art.packed),
+           "flop_savings": flop_savings(art.packed),
+           "prune_peak_bytes": torch.cuda.max_memory_allocated(device)}
+    log(arch, **out)
+
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=f"{arch}-bundle-", dir=out_dir)
+    try:
+        loaded, out["bundle"] = bundle_round_trip_digests(art, device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del art
+    torch.cuda.empty_cache()
+    log(arch, bundle=out["bundle"])
+
+    L = loaded.cfg.n_layers
+    ways = (MOE_WAYS if moe else
+            (("sparse", True, {}), ("dense", False, {})))
+    runs = moe_static_runs(loaded, device, ways)
+    if moe:
+        n_exp = loaded.cfg.layer(0).ffn.n_experts
+        prefill = 1 if BATCH * PROMPT_LEN > RAGGED_TOKENS_MAX else 0
+        expected = {
+            "default": {"grouped_block_sparse": 3 * L * prefill,
+                        "grouped_block_sparse_ragged":
+                            3 * L * (NEW_TOKENS - 1)},
+            "grouped": {"grouped_block_sparse": 3 * L * NEW_TOKENS},
+            "loop": {"block_sparse": 3 * L * n_exp * NEW_TOKENS},
+            "dense": {}}
+    else:
+        n_exp = None
+        ffn_packed = sum(1 for (_, name) in loaded.packed
+                         if name in ("gate", "up", "down"))
+        expected = {"sparse": {"block_sparse": ffn_packed * NEW_TOKENS},
+                    "dense": {}}
+    check_static_runs(runs, expected, n_exp)
+    dn = runs["dense"]
+    for name, r in runs.items():
+        if name != "dense":
+            r["vs_dense"] = compare_generation(
+                r["tokens"], r["logits"], dn["tokens"], dn["logits"],
+                PROMPT_LEN, LOGIT_ATOL)
+    if moe:
+        for name in ("grouped", "loop"):
+            if not torch.equal(runs[name]["tokens"],
+                               runs["default"]["tokens"]):
+                raise AssertionError(f"{arch}: {name} tokens differ from "
+                                     f"the ragged path's")
+    if not moe:
+        # an MoE layer drops the routed assignments past each expert's
+        # capacity, which grows with the tokens of the call: one forward
+        # over 63 tokens drops others than a 32-token prefill and 1-token
+        # steps do, in the reference as well, so the two are not the
+        # same function there
+        out["full_forward"] = full_forward_check(loaded, device, dn)
+    out["static"] = {name: {k: v for k, v in r.items()
+                            if k not in ("tokens", "logits")}
+                     for name, r in runs.items()}
+    out["expected_launches"] = expected
+    del runs, dn
+    log(arch, static=out["static"], full_forward=out.get("full_forward"))
+
+    if arch in ARCH_CONTINUOUS:
+        out["continuous"] = arch_continuous(
+            loaded, device, dense_too=arch == "musicgen-large")
+        log(arch, continuous=out["continuous"])
+    if moe:
+        ref_run = serve_continuous(
+            loaded, device, "dense-contiguous",
+            moe_requests(loaded.cfg.vocab), continuous_config(),
+            sparse=False)
+        run = serve_continuous(
+            loaded, device, "paged-kernel", moe_requests(loaded.cfg.vocab),
+            continuous_config(block_size=BLOCK_SIZE, paged_kernel=True))
+        want = {"grouped_block_sparse": 3 * L * run["prefill_chunks"],
+                "grouped_block_sparse_ragged": 3 * L * run["ticks"],
+                "paged_attention": L * run["ticks"]}
+        expect_launches(f"{arch} paged-kernel", run["launches"], want)
+        if ref_run["launches"]:
+            raise AssertionError(f"{arch} dense run launched "
+                                 f"{ref_run['launches']}")
+        out["continuous"] = {
+            "runs": [{k: v for k, v in r.items()
+                      if k not in ("tokens", "prompts")}
+                     for r in (ref_run, run)],
+            "agreement": compare_runs(loaded, device, ref_run, run)}
+        log(arch, continuous=out["continuous"])
+        kinfo = {"art": loaded}
+        grouped, ragged = phase_moe_kernels(kinfo, device,
+                                            prefix="llama4-scout.")
+        out["one_expert"] = kinfo["one_expert"]
+        out["kernels_s"] = kinfo["kernels_s"]
+        cases["grouped"] += grouped
+        cases["ragged"] += ragged
+    if loaded.cfg.frontend:
+        out["frontend"] = frontend_prefill_check(loaded, device)
+        log(arch, frontend=out["frontend"])
+    if arch == "nemotron-4-340b":
+        out["kernel_cases"] = nemotron_kernel_cases(loaded, device)
+        cases["block_sparse"] += out["kernel_cases"]
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(arch, phase_s=out["phase_s"],
+        max_memory_allocated=out["max_memory_allocated"])
+    del loaded
+    torch.cuda.empty_cache()
+    return out
+
+
+def nemotron_kernel_cases(art, device) -> list:
+    """Kernel 1 at nemotron-4-340b's pruned layer-0 up and down (the
+    squared-ReLU MLP, ungated), M 16, f32 and bf16, under the plans the
+    path serves."""
+    import torch
+    from repro_torch.kernels.block_sparse.ops import (
+        block_mask_from_weight_mask)
+    gen = torch.Generator(device=device).manual_seed(7)
+    out = []
+    for name in ("up", "down"):
+        w = art.params["blocks"][0]["mlp"][name]
+        b = art.packed[(0, name)].block
+        mask = block_mask_from_weight_mask(w != 0, b, b)
+        mask[:, 0] = False                       # an empty column
+        for dtype in (torch.float32, torch.bfloat16):
+            c = _block_sparse_case(w, mask, 16, b, dtype, gen,
+                                   f"nemotron-4-340b.layer0.{name}")
+            log("kernels", kernel="block_sparse", **c)
+            out.append(c)
+            torch.cuda.empty_cache()
+    return out
+
+
 def kernel_table(main: dict, cont: dict, moe: dict, quant: dict,
                  moe_quant: dict, ssm: dict, cases: dict) -> dict:
     """The contract's kernel line: one representative case per kernel, at
@@ -3863,6 +4533,7 @@ def main() -> int:
     main_info = phase_main(device, gpu)
     prune_side_info = phase_prune_side(main_info, device, gpu)
     cont_info = phase_continuous(main_info, device)
+    gateway_info = phase_gateway(main_info, device)
     trace = phase_trace(main_info, device)
     t_kernels = time.perf_counter()
     bs_cases, wm_cases = phase_kernels(main_info, device)
@@ -3896,7 +4567,17 @@ def main() -> int:
     hybrid_info["phase_s"] = time.perf_counter() - t_hybrid
     torch.cuda.empty_cache()
     train_info = phase_train(device, gpu)
+    torch.cuda.empty_cache()
+    arch_cases = {"block_sparse": [], "grouped": [], "ragged": []}
+    arch_info = {}
+    t_archs = time.perf_counter()
+    for arch, layers in ARCH_PHASES:
+        arch_info[arch] = phase_arch(arch, layers, device, gpu, arch_cases)
+        torch.cuda.empty_cache()
     log("phases", train_s=train_info["phase_s"],
+        gateway_s=gateway_info["phase_s"],
+        archs_s=time.perf_counter() - t_archs,
+        **{f"{arch}_s": info["phase_s"] for arch, info in arch_info.items()},
         train_full_width_s=train_info["full_width_s"],
         train_small_s=train_info["trained"]["phase_s"], prune_side_s=prune_side_info["phase_s"],
         moe_expert_removal_s=moe_info["expert_removal"]["phase_s"],
@@ -3932,6 +4613,10 @@ def main() -> int:
               "quant_grouped_block_sparse_cases": qgb_cases,
               "quant_ragged_block_sparse_cases": qrg_cases,
               "ssm": ssm_info, "hybrid": hybrid_info, "train": train_info,
+              "gateway": gateway_info, "archs": arch_info,
+              "arch_block_sparse_cases": arch_cases["block_sparse"],
+              "arch_grouped_block_sparse_cases": arch_cases["grouped"],
+              "arch_ragged_block_sparse_cases": arch_cases["ragged"],
               "table": table, "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -48,12 +48,15 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def from_numpy(a: np.ndarray, dtype: Optional[torch.dtype] = None,
                device=None) -> torch.Tensor:
-    """A stored leaf as a tensor; a 2-byte void leaf is bf16 bits."""
+    """A stored leaf as a tensor; a 2-byte void leaf is bf16 bits. The
+    leaf moves to ``device`` in its stored dtype and is cast there (a
+    bf16 leaf widened to f32 on the card crosses the bus at half the
+    bytes)."""
     if a.dtype.kind == "V" and a.dtype.itemsize == 2:
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a if a.flags.writeable else a.copy())
-    return t.to(device=device, dtype=dtype or t.dtype)
+    return t.to(device=device).to(dtype or t.dtype)
 
 
 class CheckpointManager:

@@ -23,6 +23,13 @@ bundle-driven.
       --artifact results/pruned --sparse --engine continuous \
       --block-size 16 --prefill-chunk 16 --paged-kernel --shared-prefix
 
+  # the streaming HTTP front door over the paged pool, on an ephemeral
+  # port it prints; pools sized from the bundle for a memory budget
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+      --artifact results/pruned --sparse --engine continuous \
+      --block-size 16 --gateway --port 0 --memory-budget 100000000 \
+      --device cpu
+
 ``--engine static`` runs the fixed-batch ``Engine``; ``--engine
 continuous`` runs the slot-pool ``ContinuousEngine`` (``--block-size``
 switches it to the paged KV pool). MoE expert plans run through the
@@ -31,9 +38,12 @@ expert); ``--ragged-moe`` sends decode-sized batches through the ragged
 kernel. ``--quant int8`` streams the plans' int8 kept tiles (kernels 5,
 8 and 9), ``--quant none`` forces the dequantised reference path over
 the same fake-quant weights; with ``--prune`` it also sets the recipe's
-``quant``. Runs on ``--device cuda`` (the default) and raises when CUDA is
-missing, unless ``--device cpu`` is given. ``--gateway`` is not ported
-yet and exits with an error.
+``quant``. ``--gateway`` serves ``POST /generate`` (ndjson stream or
+buffered), ``GET /metrics`` and ``GET /healthz`` on ``--host`` /
+``--port`` over a continuous engine until interrupted; with
+``--artifact``, ``--memory-budget`` sizes its slot and block pools from
+the bundle's report. Runs on ``--device cuda`` (the default) and raises
+when CUDA is missing, unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -170,6 +180,75 @@ def _run_continuous(args, params, cfg, packed, corpus, device) -> None:
     print("sample:", finished[0].tokens[:16], "...")
 
 
+def _gateway_config(args) -> ServeConfig:
+    """The gateway engine's ``ServeConfig``: from the flags, or with
+    ``--memory-budget`` its pools sized from the bundle's report."""
+    import dataclasses
+
+    from repro_torch.serve.gateway import plan_placement
+
+    max_seq = args.prompt_len + args.new_tokens
+    if args.block_size:
+        max_seq = -(-max_seq // args.block_size) * args.block_size
+    if not args.memory_budget:
+        return ServeConfig(max_slots=args.max_slots, max_seq=max_seq,
+                           block_size=args.block_size,
+                           n_blocks=args.n_blocks,
+                           prefill_chunk=args.prefill_chunk,
+                           compute_dtype=torch.float32,
+                           cache_dtype=torch.float32,
+                           paged_kernel=args.paged_kernel,
+                           scheduler=args.scheduler, **_path_knobs(args))
+    if not args.artifact:
+        raise SystemExit("--memory-budget sizes pools from a saved "
+                         "bundle's report.json; pass --artifact")
+    place = plan_placement(args.artifact, args.memory_budget,
+                           max_seq=max_seq, block_size=args.block_size,
+                           cache_dtype=torch.float32,
+                           scheduler=args.scheduler,
+                           prefill_chunk=args.prefill_chunk)
+    serve_cfg = dataclasses.replace(place.serve,
+                                    compute_dtype=torch.float32,
+                                    paged_kernel=args.paged_kernel,
+                                    **_path_knobs(args))
+    print(f"placement: weights {place.weights_bytes} B "
+          f"(density {place.density:.0%}), KV "
+          f"{place.kv_token_bytes} B/token -> {place.kv_tokens} "
+          f"tokens, max_slots={serve_cfg.max_slots}"
+          + (f", n_blocks={serve_cfg.n_blocks}" if serve_cfg.paged else ""))
+    return serve_cfg
+
+
+def _run_gateway(args, params, cfg, packed) -> None:
+    """Serve the HTTP front door until interrupted."""
+    import asyncio
+
+    from repro_torch.serve.gateway import Gateway
+
+    serve_cfg = _gateway_config(args)
+    eng = ContinuousEngine(params, cfg, serve_cfg, packed=packed)
+
+    async def _serve():
+        gw = await Gateway(eng, host=args.host, port=args.port,
+                           temperature=args.temperature).start()
+        print(f"gateway listening on http://{args.host}:{gw.port} "
+              f"(scheduler={serve_cfg.scheduler}, "
+              f"{'paged' if serve_cfg.paged else 'contiguous'} pool)",
+              flush=True)
+        try:
+            await gw.serve_forever()
+        finally:
+            _, stats = await gw.close()
+            print(f"gateway stopped: {stats.generated_tokens} tokens, "
+                  f"{stats.rejected} rejected {stats.reject_reasons}",
+                  flush=True)
+
+    try:
+        asyncio.run(_serve())
+    except KeyboardInterrupt:
+        pass
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=list_archs(), default="llama3-8b")
@@ -183,7 +262,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--save-artifact", default=None, metavar="DIR",
                     help="with --recipe/--prune: save the bundle here")
     ap.add_argument("--gateway", action="store_true",
-                    help="start the HTTP front door (not ported)")
+                    help="start the streaming HTTP front door instead "
+                         "of running a canned workload")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="gateway port (0 = ephemeral, printed at start)")
+    ap.add_argument("--memory-budget", type=int, default=None,
+                    metavar="BYTES",
+                    help="with --artifact: size max_slots/n_blocks from "
+                         "the bundle's report.json for this budget "
+                         "(overrides --max-slots/--n-blocks)")
     ap.add_argument("--batch", type=int, default=4,
                     help="static batch size / number of requests")
     ap.add_argument("--max-slots", type=int, default=4)
@@ -236,9 +324,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     args = build_parser().parse_args(argv)
-    if args.gateway:
-        raise SystemExit("--gateway is not yet ported to repro_torch; "
-                         "use --engine static or continuous")
     device = resolve_device(args.device)
 
     params, cfg, packed, source = _load_or_prune(args, device)
@@ -248,6 +333,9 @@ def main(argv=None) -> None:
               f"({source}), {flop_savings(packed):.0%} projection "
               f"FLOPs skipped")
 
+    if args.gateway:
+        _run_gateway(args, params, cfg, packed)
+        return
     corpus = SyntheticCorpus(cfg.vocab, seed=0)
     if args.engine == "continuous":
         _run_continuous(args, params, cfg, packed, corpus, device)

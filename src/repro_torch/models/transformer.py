@@ -5,8 +5,10 @@ list). A layer's mixer is GQA attention or a Mamba-2 SSD mixer
 (``models/ssm.py``); its feed-forward a dense MLP, an MoE layer
 (``models/moe.py``) or none. The forward runs unrolled stacks only: a
 scanned (period-stacked) checkpoint is unstacked at load
-(``common/interop.py::unstack_blocks``). Frontend embeddings raise
-``NotImplementedError`` until their slice is ported.
+(``common/interop.py::unstack_blocks``). Frontend embeddings (the
+stubbed vision or audio frontend's ``(B, F, d)`` output) replace the
+first F positions' token embeddings, after the embed scale, as in the
+JAX package.
 
 ``loss_fn`` runs the forward with ``train=True``: the plain attention
 and SSD paths the reference trains on (the kernels have no backward),
@@ -220,7 +222,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             paged_kernel: bool = False, train: bool = False):
     """Returns (logits, new_cache, aux_loss).
 
-    tokens: (B, S) integer tensor on the params' device. cache +
+    tokens: (B, S) integer tensor on the params' device.
+    frontend_embeds: (B, F, d) stub embeddings that take the place of
+    the first F positions' token embeddings (cast to ``compute_dtype``;
+    the tokens there are ignored). cache +
     cache_index: decode mode (tokens are the new step(s)); cache_index
     is an int / 0-d tensor or a per-sequence (B,) tensor. The cache is
     updated in place and also returned. mlp_apply: optional
@@ -240,8 +245,6 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     wraps each block in the JAX package.
     """
     _check_unrolled(cfg)
-    if frontend_embeds is not None:
-        raise NotImplementedError("frontend embeddings are not ported yet")
     B, S = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -257,6 +260,9 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = params["embed"]["table"][tokens.long()].to(compute_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
+    if frontend_embeds is not None:
+        F = frontend_embeds.shape[1]
+        x = torch.cat([frontend_embeds.to(compute_dtype), x[:, F:]], dim=1)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     new_cache = [] if cache is not None else None
@@ -301,11 +307,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, compute_dtype=torch.bfloat16,
-            aux_weight: float = 0.01):
+            labels: torch.Tensor, frontend_embeds=None,
+            compute_dtype=torch.bfloat16, aux_weight: float = 0.01):
     """Returns ``(ce + aux_weight * aux, (ce, aux))`` of a ``train=True``
-    forward: the training objective, differentiable in ``params``."""
+    forward: the training objective, differentiable in ``params`` (and
+    in ``frontend_embeds``, when given)."""
     logits, _, aux = forward(params, cfg, tokens,
+                             frontend_embeds=frontend_embeds,
                              compute_dtype=compute_dtype, train=True)
     ce = cross_entropy(logits, labels, cfg.vocab)
     return ce + aux_weight * aux, (ce, aux)

@@ -30,13 +30,22 @@ kernel on either backend. Admission order is a
 ``ServeConfig.scheduler``. Tokens are sampled per request from the
 counter-based streams of ``serve.engine.sample_tokens``, so a request
 with its own seed samples the same tokens whatever batch it shares.
+
+The tick loop is driven through a small *feed* seam: ``run`` wires in a
+batch feed (every request submitted up front, the loop ends when they
+are served) while ``serve_forever`` wires in a live feed that pulls
+from a thread-safe submission queue and emits per-token events; the
+streaming gateway (``repro_torch.serve.gateway``) runs it in a
+background thread. Both run the same admission, prefill and decode
+code, so the gateway's tokens are those of driving the engine directly.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue as queue_mod
 import time
 from collections import Counter
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -73,7 +82,89 @@ class ServeStats:
     reject_reasons: dict = dataclasses.field(default_factory=dict)
 
     def to_dict(self) -> dict:
+        """JSON-safe dump (the gateway's /metrics stats block)."""
         return dataclasses.asdict(self)
+
+
+class _BatchFeed:
+    """Default feed: every request was submitted by ``run``; the loop
+    ends when the scheduler drains, and idles by sleeping until the next
+    future arrival."""
+
+    def pump(self, sched, now: float) -> None:
+        pass
+
+    def drained(self) -> bool:
+        return True
+
+    def wait(self, sched, clock) -> None:
+        if sched.prefilling:
+            return                      # chunked prefill still progresses
+        arrival = sched.next_arrival()
+        if arrival is not None:
+            delay = arrival - clock()
+            if delay > 0:
+                time.sleep(delay)
+
+    def emit_token(self, slot, token: int, now: float) -> None:
+        pass
+
+    def emit_finished(self, fin) -> None:
+        pass
+
+    def emit_rejected(self, rej) -> None:
+        pass
+
+
+class _QueueFeed(_BatchFeed):
+    """Live feed: requests arrive on a thread-safe ``queue.Queue`` and
+    events stream out through ``emit``, the gateway's bridge into the
+    tick loop. ``stop`` (a ``threading.Event``) ends the loop once the
+    inbox and the scheduler are both drained."""
+
+    def __init__(self, inbox: queue_mod.Queue, emit: Callable,
+                 stop=None, poll_s: float = 0.002):
+        self.inbox = inbox
+        self.emit = emit
+        self.stop = stop
+        self.poll_s = poll_s
+        self._staged: list = []
+
+    def pump(self, sched, now: float) -> None:
+        while True:
+            if self._staged:
+                req = self._staged.pop(0)
+            else:
+                try:
+                    req = self.inbox.get_nowait()
+                except queue_mod.Empty:
+                    break
+            # the submission's arrival is its intake time on the engine
+            # clock: queue-wait metrics start here
+            req.arrival = now
+            sched.submit(req)
+
+    def drained(self) -> bool:
+        return (self.stop is not None and self.stop.is_set()
+                and not self._staged and self.inbox.empty())
+
+    def wait(self, sched, clock) -> None:
+        if sched.prefilling:
+            return
+        try:        # block briefly for the next submission, don't spin
+            self._staged.append(self.inbox.get(timeout=self.poll_s))
+        except queue_mod.Empty:
+            pass
+
+    def emit_token(self, slot, token: int, now: float) -> None:
+        self.emit(("token", slot.request.uid,
+                   len(slot.generated) - 1, token))
+
+    def emit_finished(self, fin) -> None:
+        self.emit(("finished", fin))
+
+    def emit_rejected(self, rej) -> None:
+        self.emit(("rejected", rej))
 
 
 class ContinuousEngine:
@@ -198,23 +289,25 @@ class ContinuousEngine:
 
     # -------------------------------------------------------------- run
 
-    def _wire(self, sched) -> None:
-        """Route scheduler lifecycle events into the metrics."""
-        sched.on_finish = lambda fin: M.observe_finished(self.metrics, fin)
-        sched.on_reject = lambda rej: self.metrics.count(
-            f"requests.rejected.{rej.reason}")
+    def _wire(self, sched, feed) -> None:
+        """Route scheduler lifecycle events into the metrics and the
+        feed."""
+        def on_finish(fin):
+            M.observe_finished(self.metrics, fin)
+            feed.emit_finished(fin)
 
-    @staticmethod
-    def _wait(sched, clock) -> None:
-        """Idle until the next future arrival (chunked prefill, when
-        there is any, still progresses without waiting)."""
-        if sched.prefilling:
-            return
-        arrival = sched.next_arrival()
-        if arrival is not None:
-            delay = arrival - clock()
-            if delay > 0:
-                time.sleep(delay)
+        def on_reject(rej):
+            self.metrics.count(f"requests.rejected.{rej.reason}")
+            feed.emit_rejected(rej)
+
+        sched.on_token = feed.emit_token
+        sched.on_finish = on_finish
+        sched.on_reject = on_reject
+
+    def _sampling_state(self, temperature: float, seed: int) -> dict:
+        return {"keys": np.zeros((self.max_slots,), np.int64),
+                "temps": np.zeros((self.max_slots,), np.float32),
+                "default_temp": float(temperature), "run_seed": int(seed)}
 
     @torch.no_grad()
     def run(self, requests, temperature: float = 0.0, seed: int = 0,
@@ -239,15 +332,46 @@ class ContinuousEngine:
         """
         sched = Scheduler(self.max_slots, self.max_seq,
                           policy=self.serve.scheduler)
-        self._wire(sched)
+        feed = _BatchFeed()
+        self._wire(sched, feed)
         for r in requests:
             sched.submit(r)
-        state = {"keys": np.zeros((self.max_slots,), np.int64),
-                 "temps": np.zeros((self.max_slots,), np.float32),
-                 "default_temp": float(temperature), "run_seed": int(seed)}
+        return self._run(sched, feed, temperature, seed, max_ticks,
+                         max_burst)
+
+    @torch.no_grad()
+    def serve_forever(self, inbox: queue_mod.Queue, emit: Callable, *,
+                      stop, temperature: float = 0.0, seed: int = 0,
+                      max_burst: int = 8, poll_s: float = 0.002):
+        """Drive the tick loop off a live submission queue (the gateway
+        runs this in a background thread).
+
+        ``inbox`` is a thread-safe ``queue.Queue`` of
+        :class:`~repro_torch.serve.scheduler.Request`; each submission's
+        ``arrival`` is stamped with its intake time on the engine clock.
+        ``emit(event)`` is called from the engine thread with
+        ``("token", uid, index, token)``, ``("finished", Finished)`` and
+        ``("rejected", Rejection)`` events, in generation order per
+        request (tokens surface at burst boundaries, up to ``max_burst``
+        at a time). ``stop`` is a ``threading.Event``: once set, the loop
+        finishes the work it has, drains the inbox, and returns
+        ``(finished, stats)`` as :meth:`run` does.
+
+        Admission order, sampling streams and every step are shared with
+        :meth:`run`: a request submitted here generates the tokens it
+        would generate driving the engine directly."""
+        sched = Scheduler(self.max_slots, self.max_seq,
+                          policy=self.serve.scheduler)
+        feed = _QueueFeed(inbox, emit, stop=stop, poll_s=poll_s)
+        self._wire(sched, feed)
+        return self._run(sched, feed, temperature, seed, None, max_burst)
+
+    def _run(self, sched, feed, temperature, seed, max_ticks, max_burst):
+        state = self._sampling_state(temperature, seed)
         if self.serve.paged:
-            return self._run_paged(sched, state, max_ticks, max_burst)
-        return self._run_contiguous(sched, state, max_ticks, max_burst)
+            return self._run_paged(sched, state, max_ticks, max_burst, feed)
+        return self._run_contiguous(sched, state, max_ticks, max_burst,
+                                    feed)
 
     def _decode_burst(self, sched, pool, state, tick_state, max_ticks,
                       max_burst, tables=None):
@@ -329,7 +453,7 @@ class ContinuousEngine:
 
     # ------------------------------------------------- contiguous backend
 
-    def _run_contiguous(self, sched, state, max_ticks, max_burst):
+    def _run_contiguous(self, sched, state, max_ticks, max_burst, feed):
         pool = T.init_cache_pool(self.cfg, self.max_slots, self.max_seq,
                                  self.cache_dtype, self.device)
         t0 = time.perf_counter()
@@ -337,7 +461,13 @@ class ContinuousEngine:
         tick_state = {"ticks": 0, "util": [], "peak": 0, "clock": clock}
         prefills = 0
 
-        while sched.has_work():
+        while True:
+            feed.pump(sched, clock())
+            if not sched.has_work():
+                if feed.drained():
+                    break
+                feed.wait(sched, clock)
+                continue
             if max_ticks is not None and tick_state["ticks"] >= max_ticks:
                 break
             for slot in sched.admissions(clock()):
@@ -350,7 +480,7 @@ class ContinuousEngine:
             new_pool = self._decode_burst(sched, pool, state, tick_state,
                                           max_ticks, max_burst)
             if new_pool is None:
-                self._wait(sched, clock)        # future arrivals
+                feed.wait(sched, clock)     # future arrivals / live inbox
                 continue
             pool = new_pool
 
@@ -370,7 +500,7 @@ class ContinuousEngine:
         own = -(-cap // bs) - shared
         return own + (1 if shared else 0)
 
-    def _run_paged(self, sched, state, max_ticks, max_burst):
+    def _run_paged(self, sched, state, max_ticks, max_burst, feed):
         serve = self.serve
         bs = serve.block_size
         alloc = BlockAllocator(serve.arena_blocks, bs)
@@ -417,7 +547,13 @@ class ContinuousEngine:
                     alloc.release([reserve])    # COW never fired
                 tables[slot.index, :] = alloc.scratch
 
-        while sched.has_work():
+        while True:
+            feed.pump(sched, clock())
+            if not sched.has_work():
+                if feed.drained():
+                    break
+                feed.wait(sched, clock)
+                continue
             if max_ticks is not None and tick_state["ticks"] >= max_ticks:
                 break
 
@@ -518,7 +654,7 @@ class ContinuousEngine:
                                           max_ticks, max_burst,
                                           tables=decode_tables)
             if new_pool is None:
-                self._wait(sched, clock)        # future arrivals
+                feed.wait(sched, clock)     # future arrivals / live inbox
                 continue
             pool = new_pool
             for s in active:

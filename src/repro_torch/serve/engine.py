@@ -35,10 +35,12 @@ _M32 = 0xFFFFFFFF
 def make_prefill_step(cfg: ModelConfig, compute_dtype=torch.bfloat16,
                       mlp_apply=None):
     """A prompt batch into a contiguous cache from position 0; returns
-    ``(logits, cache)``."""
-    def prefill_step(params, tokens, cache):
+    ``(logits, cache)``. ``frontend_embeds`` (B, F, d) take the place of
+    the first F positions' token embeddings (``transformer.forward``)."""
+    def prefill_step(params, tokens, cache, frontend_embeds=None):
         logits, cache, _ = T.forward(
-            params, cfg, tokens, cache=cache, cache_index=0,
+            params, cfg, tokens, frontend_embeds=frontend_embeds,
+            cache=cache, cache_index=0,
             compute_dtype=compute_dtype, mlp_apply=mlp_apply)
         return logits, cache
     return prefill_step

@@ -64,11 +64,12 @@ def value_and_grad(fn: Callable) -> Callable:
 
 def make_loss_fn(cfg: ModelConfig, compute_dtype=torch.bfloat16,
                  aux_weight: float = 0.01) -> Callable:
-    """``loss_fn(params, tokens, labels) -> (loss, (ce, aux))`` over the
-    f32 masters cast to ``compute_dtype``."""
-    def loss_fn(params, tokens, labels):
+    """``loss_fn(params, tokens, labels, frontend_embeds=None) -> (loss,
+    (ce, aux))`` over the f32 masters cast to ``compute_dtype``."""
+    def loss_fn(params, tokens, labels, frontend_embeds=None):
         return T.loss_fn(cast_for_compute(params, compute_dtype), cfg,
-                         tokens, labels, compute_dtype=compute_dtype,
+                         tokens, labels, frontend_embeds=frontend_embeds,
+                         compute_dtype=compute_dtype,
                          aux_weight=aux_weight)
     return loss_fn
 
@@ -78,18 +79,20 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OPT.OptConfig,
                     compute_dtype=torch.bfloat16,
                     aux_weight: float = 0.01,
                     accum_dtype=torch.float32) -> Callable:
-    """Returns ``train_step(state, tokens, labels) -> (state,
-    metrics)``; ``state = {'params': ..., 'opt': ...}`` is updated in
-    place (``optimizer.apply_updates``) and returned. With
+    """Returns ``train_step(state, tokens, labels, frontend_embeds=None)
+    -> (state, metrics)``; ``state = {'params': ..., 'opt': ...}`` is
+    updated in place (``optimizer.apply_updates``) and returned. With
     ``n_microbatches > 1`` the batch (tokens, labels: (B, S) tensors on
-    the params' device) is split on the leading axis; loss, ce and aux
-    are averaged the same way as the gradients."""
+    the params' device; frontend_embeds: (B, F, d)) is split on the
+    leading axis; loss, ce and aux are averaged the same way as the
+    gradients."""
     grad_fn = value_and_grad(make_loss_fn(cfg, compute_dtype, aux_weight))
 
-    def train_step(state, tokens, labels):
+    def train_step(state, tokens, labels, frontend_embeds=None):
         params = state["params"]
         if n_microbatches == 1:
-            (loss, (ce, aux)), grads = grad_fn(params, tokens, labels)
+            (loss, (ce, aux)), grads = grad_fn(params, tokens, labels,
+                                               frontend_embeds)
         else:
             B = tokens.shape[0]
             if B % n_microbatches:
@@ -103,8 +106,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OPT.OptConfig,
             n = n_microbatches
             for i in range(n):
                 rows = slice(i * mb, (i + 1) * mb)
+                fe = (frontend_embeds[rows] if frontend_embeds is not None
+                      else None)
                 (lo, (ce_i, aux_i)), g = grad_fn(params, tokens[rows],
-                                                 labels[rows])
+                                                 labels[rows], fe)
                 for a, b in zip_leaves(grads, g):
                     a.copy_(a.float() + b.float() / n)
                 loss = loss + lo / n

@@ -450,14 +450,16 @@ def test_paged_attention_kernel_batch_invariant(cuda, dtype):
 
 @pytest.mark.parametrize("group,n_kv,D", [(8, 1, 256), (12, 8, 192),
                                           (3, 2, 64), (3, 2, 68),
-                                          (3, 2, 132)])
+                                          (3, 2, 132), (1, 32, 64),
+                                          (5, 8, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_kernel_wide_heads(cuda, group, n_kv, D, dtype):
-    """gemma-2b's heads (8 q / 1 kv, D 256) and nemotron-4-340b's (96 q
-    / 8 kv, D 192), and widths no served model reaches: lanes past D at
-    D 64 and 68, bf16 rows of 8k + 8 bytes (D 68 and 132, the 8-byte
-    copies); over a table several partitions wide, with a length-0 row
-    and the full row's twin."""
+    """gemma-2b's heads (8 q / 1 kv, D 256), nemotron-4-340b's (96 q /
+    8 kv, D 192), musicgen-large's MHA (32 q / 32 kv, D 64: group 1) and
+    llama4-scout's (40 q / 8 kv: group 5), and widths no served model
+    reaches: lanes past D at D 64 and 68, bf16 rows of 8k + 8 bytes (D
+    68 and 132, the 8-byte copies); over a table several partitions
+    wide, with a length-0 row and the full row's twin."""
     lengths, max_blocks = _edge_lengths(16, 3)
     lengths += [0, lengths[-1]]
     q, k, v, tables, lens = (torch.from_numpy(a).to(cuda) for a in
@@ -504,6 +506,19 @@ def test_flash_attention_kernel_head_widths(cuda, D, dtype):
     q, k, v = _flash_inputs(2, 128, 3, 2, D, dtype, 50 + D, cuda)
     _attn_close(fa_kernel.flash_attention(q, k, v),
                 fa_ref.flash_attention_ref(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_musicgen_heads(cuda, dtype):
+    """musicgen-large's prefill heads: MHA (group 1) over 32 heads at D
+    64, one 3072-token prompt, as its continuous engine prefills it."""
+    q, k, v = _flash_inputs(1, 3072, 1, 32, 64, dtype, 55, cuda)
+    counters.reset()
+    out = fa_ops.flash_attention_bshd(q, k, v)
+    torch.cuda.synchronize()
+    assert counters.snapshot() == {"flash_attention": 1}
+    assert out.shape == q.shape and out.dtype == dtype
+    _attn_close(out, fa_ref.flash_attention_ref(q, k, v), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -696,9 +711,10 @@ def test_ragged_kernel_takes_more_than_65535_tiles(cuda):
     assert not y[-32:].any()
 
 
-def _moe_layer(cuda, E=8, top_k=2, d=64, d_ff=64, block=16, seed=70):
+def _moe_layer(cuda, E=8, top_k=2, d=64, d_ff=64, block=16, seed=70,
+               n_shared=0):
     rng = np.random.default_rng(seed)
-    spec = MoESpec(n_experts=E, top_k=top_k, d_ff=d_ff)
+    spec = MoESpec(n_experts=E, top_k=top_k, d_ff=d_ff, n_shared=n_shared)
     p = {"router": rng.standard_normal((d, E)) / np.sqrt(d),
          "up": rng.standard_normal((E, d, d_ff)) / np.sqrt(d),
          "gate": rng.standard_normal((E, d, d_ff)) / np.sqrt(d),
@@ -710,6 +726,13 @@ def _moe_layer(cuda, E=8, top_k=2, d=64, d_ff=64, block=16, seed=70):
         w *= np.repeat(np.repeat(bm, block, 1), block, 2)
     params = {k: torch.from_numpy(v.astype(np.float32)).to(cuda)
               for k, v in p.items()}
+    if n_shared:             # the shared expert: a dense gated MLP
+        f = d_ff * n_shared
+        params["shared"] = {
+            nm: torch.from_numpy((rng.standard_normal(shape) / np.sqrt(
+                shape[0])).astype(np.float32)).to(cuda)
+            for nm, shape in (("up", (d, f)), ("gate", (d, f)),
+                              ("down", (f, d)))}
     packed = {(0, nm): serve_sparse.pack_expert_projection(
         params[nm], block=block, ragged=True) for nm in ("gate", "up",
                                                          "down")}
@@ -789,6 +812,60 @@ def test_moe_paths_bitwise_equal_in_bf16(cuda, S):
     assert out["grouped"].dtype == torch.bfloat16
     assert torch.equal(out["grouped"], out["loop"])
     assert torch.equal(out["grouped"], out["ragged"])
+
+
+@pytest.mark.parametrize("S", [1, 16])
+def test_moe_top1_over_16_experts_with_a_shared_expert(cuda, S):
+    """llama4-scout's routing: top-1 over 16 experts with a shared expert
+    beside them (run dense). The ragged (kernel 7, decode), grouped
+    (kernel 6) and per-expert loop (kernel 1) paths give the same rows
+    in f32 and stay within the plain MoE layer's tolerance."""
+    spec, params, packed = _moe_layer(cuda, E=16, top_k=1, d=128,
+                                      d_ff=128, seed=81, n_shared=1)
+    x = torch.from_numpy(np.random.default_rng(82).standard_normal(
+        (4, S, 128)).astype(np.float32)).to(cuda)
+    bp = {"moe": params}
+    out = {}
+    for name, kw, kernel_name in (
+            ("ragged", {"ragged_moe": True}, "grouped_block_sparse_ragged"),
+            ("grouped", {"ragged_moe": False}, "grouped_block_sparse"),
+            ("loop", {"ragged_moe": False, "group_experts": False},
+             "block_sparse")):
+        counters.reset()
+        out[name] = serve_sparse.sparse_apply_moe(bp, spec, x, packed, 0,
+                                                  **kw)
+        torch.cuda.synchronize()
+        want = 3 * (spec.n_experts if name == "loop" else 1)
+        assert counters.snapshot()[kernel_name] == want, name
+    assert torch.equal(out["ragged"], out["grouped"])
+    assert torch.equal(out["ragged"], out["loop"])
+    dense, _ = moe.apply_moe(params, spec, x)
+    _close(out["ragged"], dense, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_sparse_kernel_at_nemotron_up(cuda, dtype):
+    """Kernel 1 at nemotron-4-340b's squared-ReLU up projection (18432 x
+    73728, the widest the port serves) at M 16, half its 16-tiles live,
+    against the plain version."""
+    block, K, N, M = 16, 18432, 73728, 16
+    gen = torch.Generator(device=cuda).manual_seed(83)
+    bm = torch.rand((K // block, N // block), generator=gen,
+                    device=cuda) < 0.5
+    bm[:, 0] = False
+    counts, indices = (torch.from_numpy(a).to(cuda)
+                       for a in bs_ops.plan_blocks(bm.cpu().numpy()))
+    w = torch.randn((K, N), generator=gen, device=cuda).mul_(K ** -0.5)
+    w = torch.where(bm.repeat_interleave(block, 0).repeat_interleave(
+        block, 1), w, torch.zeros((), device=cuda)).to(dtype)
+    x = torch.randn((M, K), generator=gen, device=cuda).to(dtype)
+    counters.reset()
+    y = bs_ops.blocksparse_matmul(x, w, counts, indices, block)
+    torch.cuda.synchronize()
+    assert counters.snapshot() == {"block_sparse": 1}
+    plain = x.float() @ w.float()
+    _close(y, plain, dtype)
+    assert y.dtype == dtype and not y[:, :block].any()
 
 
 def test_ragged_switches_to_grouped_above_64_tokens(cuda):

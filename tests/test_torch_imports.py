@@ -57,7 +57,13 @@ def test_port_files_import_no_jax_and_no_repro():
             "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ref.py",
             "train/optimizer.py", "train/train_step.py", "train/trainer.py",
             "distributed/fault.py", "core/lora.py", "launch/train.py",
-            "kernels/no_backward.py"} <= rel
+            "kernels/no_backward.py", "serve/gateway/__init__.py",
+            "serve/gateway/protocol.py", "serve/gateway/server.py",
+            "serve/gateway/placement.py", "configs/gemma_2b.py",
+            "configs/phi3_medium_14b.py", "configs/qwen2_72b.py",
+            "configs/nemotron_4_340b.py", "configs/qwen2_vl_2b.py",
+            "configs/musicgen_large.py",
+            "configs/llama4_scout_17b_16e.py"} <= rel
     bad = {os.path.relpath(f, REPO): sorted(set(r for r in _imported_roots(f)
                                                 if r in FORBIDDEN))
            for f in files}
@@ -122,8 +128,9 @@ def test_serve_entry_raises_without_cuda_unless_cpu(monkeypatch, capsys):
                 "--prompt-len", "4", "--batch", "2", "--engine",
                 "continuous", "--block-size", "8", "--paged-kernel"])
     assert "served 2 requests, 4 tokens on cpu" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not yet ported"):
-        serve.main(["--smoke", "--device", "cpu", "--gateway"])
+    with pytest.raises(SystemExit, match="pass --artifact"):
+        serve.main(["--smoke", "--device", "cpu", "--gateway",
+                    "--memory-budget", "1000000"])
     from repro_torch.launch import prune
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         prune.main(["--smoke", "--p", "0.5"])

@@ -214,10 +214,12 @@ def test_vector_cache_index_decodes_ragged_offsets(model):
 
 
 def test_scan_and_moe_raise_not_implemented():
-    """Scanned stacks and frontend embeddings raise until their slices
-    are ported. MoE feed-forwards and Mamba mixers came with their
-    slices and no longer raise (their parity with JAX is in
-    ``tests/test_torch_moe.py`` and ``tests/test_torch_ssm.py``)."""
+    """Scanned stacks raise (a scanned checkpoint is unstacked at load).
+    MoE feed-forwards, Mamba mixers and frontend embeddings came with
+    their slices and no longer raise (their parity with JAX is in
+    ``tests/test_torch_moe.py``, ``tests/test_torch_ssm.py`` and
+    ``tests/test_torch_archs.py``): frontend embeddings replace the
+    first positions' token embeddings."""
     cfg = config_from_dict(jax_config_to_dict(small_config(moe=True)))
     params = T.init_model(torch.Generator().manual_seed(0), cfg)
     assert "moe" in params["blocks"][1] and "mlp" in params["blocks"][0]
@@ -229,6 +231,15 @@ def test_scan_and_moe_raise_not_implemented():
     with pytest.raises(NotImplementedError):
         T.init_model(torch.Generator().manual_seed(0),
                      get_config("llama3-8b"))
-    with pytest.raises(NotImplementedError):
-        T.forward(params, hybrid, torch.zeros((1, 4), dtype=torch.long),
-                  frontend_embeds=torch.zeros((1, 1, hybrid.d_model)))
+    toks = torch.arange(1, 5)[None]
+    fe = torch.ones((1, 1, hybrid.d_model))
+    with_fe, _, _ = T.forward(params, hybrid, toks, frontend_embeds=fe,
+                              compute_dtype=torch.float32)
+    alone, _, _ = T.forward(params, hybrid, toks,
+                            compute_dtype=torch.float32)
+    assert not torch.allclose(with_fe[:, 0], alone[:, 0])
+    swapped = toks.clone()
+    swapped[0, 0] = 7                 # the token under the frontend slot
+    again, _, _ = T.forward(params, hybrid, swapped, frontend_embeds=fe,
+                            compute_dtype=torch.float32)
+    assert torch.equal(again, with_fe)
