@@ -189,7 +189,28 @@ Phases, each printing one line of its own:
                 full forward (qwen2-vl-2b, musicgen-large); kernel 1 at
                 nemotron's layer-0 up and down; kernels 6 and 7 at
                 llama4-scout's gate and down stacks. Each logs its
-                seconds and peak memory.
+                seconds and peak memory;
+14. distributed — (run after the train phase) the distribution layer on
+                one card: NCCL at world
+                size 1 (127.0.0.1, a free port) and ``make_host_mesh``
+                (1 x 1); params, caches and inputs as DTensors laid out by
+                the JAX package's specs. llama3-8b (full width, 2 layers,
+                f32, seed 0): a 3072-token forward whose attention runs
+                kernel 4 on each rank's local shards (``local_map``),
+                held to the unsharded forward (logits within
+                ``LOGIT_ATOL``, equal argmax, equal kernel-4 count), and
+                a prefill plus one decode step on a sharded contiguous
+                cache held the same way; mamba2-1.3b (full width, 4
+                layers): a 600-token prefill through kernel 10 on local
+                shards, held the same way; 3 sharded ``Trainer`` steps of
+                llama3-8b (2 layers, bf16 over f32 masters) within
+                ``DIST_LOSS_RTOL`` of the unsharded Trainer in loss, and
+                the sharded params' checkpoint round trip held bitwise;
+                ``compressed_all_reduce`` over the one-rank NCCL group
+                (NCCL's all-reduce launched) bitwise equal to
+                ``compress_tree``. The process group is destroyed at the
+                end; the phase logs its seconds, peak memory and the
+                sharded and unsharded ms (recorded, no claim).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -441,6 +462,10 @@ RESUME_RTOL = 1e-3                 # embedding backward: atomics, not bitwise
 TRAINED_PPL_MAX = 150              # well below the vocabulary of 256
 ORDER_SLACK = 1.5                  # tests/test_system.py's slack
 HYBRID_ARCH, HYBRID_REQUESTS = "jamba-v0.1-52b", 6
+# the distributed phase: NCCL at world size 1 on a (1, 1) host mesh
+DIST_LLAMA_LAYERS, DIST_SSM_LAYERS = 2, 4
+DIST_TRAIN_STEPS, DIST_TRAIN_BATCH, DIST_TRAIN_SEQ = 3, 2, 512
+DIST_LOSS_RTOL = 1e-3             # bf16 compute: reduction order only
 
 
 def log(phase: str, **kw) -> None:
@@ -3593,6 +3618,275 @@ def train_full_width(arch: str, n_layers: int, steps: int, device) -> dict:
     return out
 
 
+def _timed_ms(fn, device) -> tuple:
+    """(fn's result, host ms of a second call ending in a sync); the
+    first call warms caches (and DTensor's sharding propagation)."""
+    fn()
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _held(label: str, got, want, launches: dict, plain: dict,
+          kernel: str) -> dict:
+    """Sharded logits ``got`` (a DTensor) against the unsharded ``want``:
+    within LOGIT_ATOL, the same argmax, the same non-zero launch count
+    of ``kernel``."""
+    import torch
+    got = got.full_tensor()
+    err = (got.float() - want.float()).abs().max().item()
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    if not (err <= LOGIT_ATOL and same and plain.get(kernel, 0) > 0
+            and launches == plain):
+        raise AssertionError(f"distributed {label}: max err {err}, argmax "
+                             f"equal {same}, launches {launches} vs "
+                             f"{plain}")
+    return {"max_abs_err": err, "argmax_equal": same, "launches": launches}
+
+
+def _dist_llama(mesh, device) -> dict:
+    """Full-width llama3-8b at DIST_LLAMA_LAYERS layers, f32: a
+    LONG_PROMPT forward, then a prefill and one decode step on a
+    contiguous cache, each sharded and unsharded."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import axes as AX
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import counters
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import make_prefill_step, make_serve_step
+    f32 = torch.float32
+    cfg = get_config("llama3-8b").replace(n_periods=DIST_LLAMA_LAYERS,
+                                          scan_layers=False)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = T.init_model(gen, cfg)
+    prompt = torch.randint(0, cfg.vocab, (1, LONG_PROMPT), generator=gen,
+                           device=device)
+    sp = SH.shard_params(params, mesh, cfg)
+    stoks = SH.shard_inputs(prompt, mesh)
+    out = {"layers": cfg.n_layers, "prompt": LONG_PROMPT}
+    with torch.no_grad():
+        counters.reset()
+        ref = T.forward(params, cfg, prompt, compute_dtype=f32)[0]
+        plain = counters.snapshot()
+
+        def sharded():
+            with AX.use_mesh(mesh):
+                return T.forward(sp, cfg, stoks, compute_dtype=f32)[0]
+        counters.reset()
+        lo = sharded()
+        launches = counters.snapshot()
+        out["forward"] = _held("llama forward", lo, ref, launches, plain,
+                               "flash_attention")
+        del lo
+        _, out["plain_forward_ms"] = _timed_ms(
+            lambda: T.forward(params, cfg, prompt, compute_dtype=f32)[0],
+            device)
+        _, out["sharded_forward_ms"] = _timed_ms(sharded, device)
+        del ref
+        torch.cuda.empty_cache()
+
+        s_max = LONG_PROMPT + 8
+        nxt = prompt[:, -1:]
+        counters.reset()
+        cache = T.init_cache(cfg, 1, s_max, f32, device)
+        make_prefill_step(cfg, f32)(params, prompt, cache)
+        ref = make_serve_step(cfg, f32)(params, cache, nxt, LONG_PROMPT)[0]
+        plain = counters.snapshot()
+        del cache
+        counters.reset()
+        scache = SH.shard_cache(T.init_cache(cfg, 1, s_max, f32, device),
+                                mesh, cfg, 1)
+        with AX.use_mesh(mesh):
+            make_prefill_step(cfg, f32)(sp, stoks, scache)
+            lo = make_serve_step(cfg, f32)(
+                sp, scache, SH.shard_inputs(nxt, mesh), LONG_PROMPT)[0]
+        launches = counters.snapshot()
+        out["decode"] = _held("llama decode", lo, ref, launches, plain,
+                              "flash_attention")
+        out["cache_placements"] = str(scache[0]["attn"]["k"].placements)
+    return out
+
+
+def _dist_mamba(mesh, device) -> dict:
+    """Full-width mamba2-1.3b at DIST_SSM_LAYERS layers, f32: a
+    SSM_CHECK_PROMPT-token prefill (kernel 10), sharded and unsharded."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import axes as AX
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import counters
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import make_prefill_step
+    f32 = torch.float32
+    cfg = get_config("mamba2-1.3b").replace(n_periods=DIST_SSM_LAYERS,
+                                            scan_layers=False)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = T.init_model(gen, cfg)
+    prompt = torch.randint(0, cfg.vocab, (1, SSM_CHECK_PROMPT),
+                           generator=gen, device=device)
+    step = make_prefill_step(cfg, f32)
+    with torch.no_grad():
+        counters.reset()
+        ref, _ = step(params, prompt,
+                      T.init_cache(cfg, 1, SSM_CHECK_PROMPT, f32, device))
+        plain = counters.snapshot()
+        sp = SH.shard_params(params, mesh, cfg)
+
+        def sharded():
+            cache = SH.shard_cache(
+                T.init_cache(cfg, 1, SSM_CHECK_PROMPT, f32, device), mesh,
+                cfg, 1)
+            with AX.use_mesh(mesh):
+                return step(sp, SH.shard_inputs(prompt, mesh), cache)[0]
+        counters.reset()
+        lo = sharded()
+        launches = counters.snapshot()
+        out = {"layers": cfg.n_layers, "prompt": SSM_CHECK_PROMPT,
+               "prefill": _held("mamba prefill", lo, ref, launches, plain,
+                                "ssd_scan")}
+        _, out["plain_prefill_ms"] = _timed_ms(
+            lambda: step(params, prompt, T.init_cache(
+                cfg, 1, SSM_CHECK_PROMPT, f32, device))[0], device)
+        _, out["sharded_prefill_ms"] = _timed_ms(sharded, device)
+    return out
+
+
+def _dist_train(mesh, device, directory: str) -> dict:
+    """DIST_TRAIN_STEPS Trainer steps of llama3-8b (DIST_LLAMA_LAYERS
+    layers, bf16 over f32 masters) unsharded, then sharded on ``mesh``:
+    losses within DIST_LOSS_RTOL; the sharded params' checkpoint round
+    trip bitwise."""
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.common.tree import iter_paths, tree_map
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.distributed.axes import full
+    from repro_torch.kernels import counters
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer
+    cfg = get_config("llama3-8b").replace(n_periods=DIST_LLAMA_LAYERS,
+                                          scan_layers=False, remat=True)
+    batch = next(SyntheticCorpus(cfg.vocab, seed=0).batches(
+        DIST_TRAIN_BATCH, DIST_TRAIN_SEQ))
+
+    def trainer(m):
+        return Trainer(cfg, OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                                      total_steps=DIST_TRAIN_STEPS),
+                       itertools.repeat(batch, DIST_TRAIN_STEPS),
+                       compute_dtype=torch.bfloat16, device=device,
+                       mesh=m, prefetch=False)
+    out = {"layers": cfg.n_layers, "steps": DIST_TRAIN_STEPS,
+           "batch": DIST_TRAIN_BATCH, "seq": DIST_TRAIN_SEQ}
+    counters.reset()
+    reports = {}
+    for name, m in (("plain", None), ("sharded", mesh)):
+        tr = trainer(m)
+        try:
+            reports[name] = tr.run(DIST_TRAIN_STEPS)
+        finally:
+            tr.preemption.uninstall()
+        if m is None:
+            del tr
+            torch.cuda.empty_cache()
+    if counters.snapshot():
+        raise AssertionError(f"train steps launched {counters.snapshot()}")
+    lp, ls = reports["plain"].losses, reports["sharded"].losses
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ls, lp))
+    if len(ls) != DIST_TRAIN_STEPS or not rel <= DIST_LOSS_RTOL:
+        raise AssertionError(f"sharded losses {ls} vs {lp}")
+    out.update(plain_losses=lp, sharded_losses=ls, loss_rel_err=rel,
+               plain_step_ms=[t * 1e3 for t in reports["plain"].step_seconds],
+               sharded_step_ms=[t * 1e3
+                                for t in reports["sharded"].step_seconds])
+    params = tr.state["params"]
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(directory)
+    mgr.save(DIST_TRAIN_STEPS, params, blocking=True)
+    like = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta"), params)
+    back = mgr.restore(like, device=device)
+    got = dict(iter_paths(back))
+    if not all(torch.equal(got[p], full(x)) for p, x in iter_paths(params)):
+        raise AssertionError("sharded checkpoint round trip not bitwise")
+    out["checkpoint_s"] = time.perf_counter() - t0
+    out["checkpoint_bytes"] = sum(x.numel() * x.element_size()
+                                  for x in got.values())
+    shutil.rmtree(directory, ignore_errors=True)
+    return out
+
+
+def _dist_compression(mesh, device) -> dict:
+    """``compressed_all_reduce`` over the mesh's one-rank 'data' group on
+    NCCL, two steps with error feedback, bitwise equal to
+    ``compress_tree``'s dequantised payload and residual."""
+    import torch
+    from repro_torch.distributed.compression import (compress_tree,
+                                                     compressed_all_reduce,
+                                                     dequantize_int8)
+    gen = torch.Generator(device=device).manual_seed(0)
+    grads = [{"w": torch.randn(4096, 4096, generator=gen, device=device),
+              "b": torch.randn(14336, generator=gen, device=device)}
+             for _ in range(2)]
+    e_red = e_ref = None
+    for g in grads:
+        red, e_red = compressed_all_reduce(g, mesh, "data", e_red)
+        q, s, e_ref = compress_tree(g, e_ref)
+        for k in g:
+            if not (torch.equal(red[k], dequantize_int8(q[k], s[k]))
+                    and torch.equal(e_red[k], e_ref[k])):
+                raise AssertionError(f"compressed all-reduce {k} differs "
+                                     f"from compress_tree")
+    return {"bitwise": True, "leaves": 2, "steps": 2}
+
+
+def phase_distributed(device, gpu: str) -> dict:
+    """The distribution layer on one card (NCCL at world size 1)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init_distributed(device)
+    try:
+        mesh = make_host_mesh()
+        out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+        out["llama"] = _dist_llama(mesh, device)
+        torch.cuda.empty_cache()
+        out["mamba"] = _dist_mamba(mesh, device)
+        torch.cuda.empty_cache()
+        out["train"] = _dist_train(mesh, device, os.path.join(
+            HERE, "chiprun_out", "dist_ckpt"))
+        torch.cuda.empty_cache()
+        out["compression"] = _dist_compression(mesh, device)
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t0
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    log("distributed", gpu=gpu, phase_s=out["phase_s"],
+        max_memory_allocated=out["max_memory_allocated"],
+        mesh=out["mesh"], backend=out["backend"],
+        llama_forward=out["llama"]["forward"],
+        llama_decode=out["llama"]["decode"],
+        plain_forward_ms=out["llama"]["plain_forward_ms"],
+        sharded_forward_ms=out["llama"]["sharded_forward_ms"],
+        mamba_prefill=out["mamba"]["prefill"],
+        plain_prefill_ms=out["mamba"]["plain_prefill_ms"],
+        sharded_prefill_ms=out["mamba"]["sharded_prefill_ms"],
+        train_losses=[out["train"]["plain_losses"],
+                      out["train"]["sharded_losses"]],
+        plain_step_ms=out["train"]["plain_step_ms"],
+        sharded_step_ms=out["train"]["sharded_step_ms"],
+        checkpoint_s=out["train"]["checkpoint_s"],
+        compression=out["compression"])
+    return out
+
+
 def small_train_config():
     """tests/conftest.py::small_config(vocab=256), rebuilt here: two
     llama-style layers, d 64, 4 q / 2 kv heads of 16, d_ff 128."""
@@ -4568,6 +4862,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_info = phase_train(device, gpu)
     torch.cuda.empty_cache()
+    dist_info = phase_distributed(device, gpu)
+    torch.cuda.empty_cache()
     arch_cases = {"block_sparse": [], "grouped": [], "ragged": []}
     arch_info = {}
     t_archs = time.perf_counter()
@@ -4575,6 +4871,7 @@ def main() -> int:
         arch_info[arch] = phase_arch(arch, layers, device, gpu, arch_cases)
         torch.cuda.empty_cache()
     log("phases", train_s=train_info["phase_s"],
+        distributed_s=dist_info["phase_s"],
         gateway_s=gateway_info["phase_s"],
         archs_s=time.perf_counter() - t_archs,
         **{f"{arch}_s": info["phase_s"] for arch, info in arch_info.items()},
@@ -4613,6 +4910,7 @@ def main() -> int:
               "quant_grouped_block_sparse_cases": qgb_cases,
               "quant_ragged_block_sparse_cases": qrg_cases,
               "ssm": ssm_info, "hybrid": hybrid_info, "train": train_info,
+              "distributed": dist_info,
               "gateway": gateway_info, "archs": arch_info,
               "arch_block_sparse_cases": arch_cases["block_sparse"],
               "arch_grouped_block_sparse_cases": arch_cases["grouped"],

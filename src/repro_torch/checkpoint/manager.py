@@ -18,6 +18,12 @@ A save copies every leaf to the host before it returns; with
 ``blocking=False`` a background thread then writes the files while the
 caller goes on (training continues while IO happens). ``wait`` joins
 that thread; the next save waits for it first.
+
+A sharded tree (DTensor leaves) is saved the same way: every rank
+gathers each leaf whole (``full_tensor``, a collective), and rank 0
+writes the unsharded arrays. ``restore`` with ``shardings`` places each
+leaf on a mesh by its spec, so a checkpoint written on any mesh, or by
+either package, restores onto any other.
 """
 from __future__ import annotations
 
@@ -30,8 +36,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.common.tree import iter_paths, tree_set
+from repro_torch.common.tree import iter_paths, tree_get, tree_set
+from repro_torch.distributed.axes import full
 
 
 def _path_key(path) -> str:
@@ -74,12 +82,17 @@ class CheckpointManager:
         """Copy every leaf to the host, then write the step: here, or on
         a background thread when ``blocking=False``. A CPU leaf is
         cloned for a background write, so an in-place update after the
-        call does not reach the file."""
+        call does not reach the file. A DTensor leaf is gathered whole
+        on every rank (so every rank calls ``save``), and only rank 0 of
+        the process group writes."""
         def snapshot(leaf):
-            if not blocking and leaf.device.type == "cpu":
-                leaf = leaf.detach().clone()
-            return to_numpy(leaf)
+            gathered = full(leaf)
+            if not blocking and gathered is leaf and leaf.device.type == "cpu":
+                gathered = leaf.detach().clone()
+            return to_numpy(gathered)
         host = {_path_key(p): snapshot(leaf) for p, leaf in iter_paths(tree)}
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         meta = {"step": step, "time": time.time(), **(extra_meta or {})}
         self.wait()
         if blocking:
@@ -128,11 +141,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, like: Any, step: Optional[int] = None,
-                device=None) -> Any:
+                device=None, shardings: Any = None) -> Any:
         """Fill a tree shaped like ``like`` from the checkpoint. Each
         leaf of ``like`` only needs ``.shape`` and ``.dtype`` (a meta
         tensor does); the stored array must have that shape, and is cast
-        to that dtype on ``device``."""
+        to that dtype on ``device``. ``shardings`` (a tree of
+        ``sharding.NamedSharding`` over ``like``'s paths) places each
+        leaf on its mesh by its spec, as a DTensor on the mesh's
+        device."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -146,7 +162,12 @@ class CheckpointManager:
                     raise ValueError(f"{_path_key(p)}: stored shape "
                                      f"{arr.shape}, expected "
                                      f"{tuple(leaf.shape)}")
-                tree = tree_set(tree, p, from_numpy(arr, leaf.dtype, device))
+                if shardings is None:
+                    leaf = from_numpy(arr, leaf.dtype, device)
+                else:
+                    leaf = tree_get(shardings, p).place(
+                        from_numpy(arr, leaf.dtype))
+                tree = tree_set(tree, p, leaf)
         return tree
 
     def meta(self, step: Optional[int] = None) -> dict:

@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.block_sparse import kernel, ref
-from repro_torch.kernels.no_backward import refuse_grad
+from repro_torch.kernels.no_backward import check_inputs
 
 
 def block_mask_from_weight_mask(mask: torch.Tensor, block_k: int,
@@ -103,7 +103,7 @@ def blocksparse_matmul(x: torch.Tensor, w: torch.Tensor,
     """y = x @ w visiting nonzero weight blocks only. A CUDA ``x``
     launches the kernel (or raises); a CPU ``x`` runs the plain
     version."""
-    refuse_grad("blocksparse_matmul", x, w)
+    check_inputs("blocksparse_matmul", x, w, counts, indices)
     if x.device.type == "cpu":
         bmask = ref.block_mask_from_plan(counts, indices,
                                          w.shape[0] // block)
@@ -120,7 +120,8 @@ def quant_blocksparse_matmul(x: torch.Tensor, tiles: torch.Tensor,
     (nN, max_nnz). A CUDA ``x`` launches the kernel (or raises); a CPU
     ``x`` runs the plain version (kernel 1's plain version over the
     dequantised weight)."""
-    refuse_grad("quant_blocksparse_matmul", x, scales)
+    check_inputs("quant_blocksparse_matmul", x, tiles, counts, indices,
+                 slots, scales)
     if x.device.type == "cpu":
         return ref.quant_block_sparse_matmul_ref(x, tiles, counts, indices,
                                                  slots, scales, block)

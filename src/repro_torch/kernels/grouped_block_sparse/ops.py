@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import counters
 from repro_torch.kernels.grouped_block_sparse import kernel, ref
-from repro_torch.kernels.no_backward import refuse_grad
+from repro_torch.kernels.no_backward import check_inputs
 
 # Above this many slot rows a grouped panel is tiled by the plan block
 # instead of kept whole (the JAX package's VMEM-driven threshold; kept so
@@ -75,7 +75,8 @@ def grouped_blocksparse_matmul(x: torch.Tensor, w: torch.Tensor,
     M-block) pairs with no live row are written as zeros without being
     computed. A CUDA ``x`` launches the kernel (or raises); a CPU ``x``
     runs the plain version."""
-    refuse_grad("grouped_blocksparse_matmul", x, w)
+    check_inputs("grouped_blocksparse_matmul", x, w, counts, indices,
+                 row_live)
     E, M, _ = x.shape
     block_m = M if block_m is None else block_m
     work, experts = occupancy(row_live, E, M, block_m, x.device)
@@ -103,7 +104,8 @@ def quant_grouped_blocksparse_matmul(x: torch.Tensor, tiles: torch.Tensor,
     (T, b, b) int8; slots (E, nN, max_nnz) int32 absolute rows; scales
     (E, nN, max_nnz) f32. A CPU ``x`` runs kernel 6's plain version over
     the dequantised stack."""
-    refuse_grad("quant_grouped_blocksparse_matmul", x, scales)
+    check_inputs("quant_grouped_blocksparse_matmul", x, tiles, counts,
+                 indices, slots, scales, row_live)
     E, M, _ = x.shape
     block_m = M if block_m is None else block_m
     work, experts = occupancy(row_live, E, M, block_m, x.device)
@@ -130,7 +132,8 @@ def quant_ragged_blocksparse_matmul(x: torch.Tensor, tiles: torch.Tensor,
     """The ragged launch over int8 kept-tile storage (operands as in
     :func:`quant_grouped_blocksparse_matmul`). A CPU ``x`` runs kernel
     7's plain version over the dequantised stack."""
-    refuse_grad("quant_ragged_blocksparse_matmul", x, scales)
+    check_inputs("quant_ragged_blocksparse_matmul", x, tiles, counts,
+                 indices, slots, scales, tile_expert)
     tile_expert = tile_expert.to(torch.int32)
     if x.device.type == "cpu":
         w, masks = ref.dequantized_stack(tiles, counts, indices, slots,
@@ -156,7 +159,8 @@ def ragged_blocksparse_matmul(x: torch.Tensor, w: torch.Tensor,
     launch sized by the packed buffer rather than E x capacity.
     ``tile_expert`` maps each 16-row tile to its expert (-1: a dead
     padding tile, written as zeros)."""
-    refuse_grad("ragged_blocksparse_matmul", x, w)
+    check_inputs("ragged_blocksparse_matmul", x, w, counts, indices,
+                 tile_expert)
     tile_expert = tile_expert.to(torch.int32)
     if x.device.type == "cpu":
         masks = ref.block_masks_from_plans(counts, indices,

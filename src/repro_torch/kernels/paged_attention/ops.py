@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.no_backward import refuse_grad
+from repro_torch.kernels.no_backward import check_inputs
 from repro_torch.kernels.paged_attention import kernel, ref
 
 
@@ -13,7 +13,8 @@ def paged_attention_decode(q: torch.Tensor, k_arena: torch.Tensor,
                            lengths: torch.Tensor) -> torch.Tensor:
     """q: (B, 1, Hq, D); k/v arena: (n_blocks + 1, bs, Hkv, D);
     block_tables: (B, max_blocks); lengths: (B,) -> (B, 1, Hq, D)."""
-    refuse_grad("paged_attention_decode", q, k_arena, v_arena)
+    check_inputs("paged_attention_decode", q, k_arena, v_arena,
+                 block_tables, lengths)
     if q.shape[1] != 1:
         raise ValueError(f"paged_attention is decode-only (S=1), got "
                          f"S={q.shape[1]}")

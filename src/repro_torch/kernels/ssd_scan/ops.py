@@ -6,7 +6,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.no_backward import refuse_grad
+from repro_torch.kernels.no_backward import check_inputs
 from repro_torch.kernels.ssd_scan import kernel, ref
 
 
@@ -16,7 +16,7 @@ def ssd_scan(xt: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
     """xt: (B, L, H, P); da: (B, L, H) f32; Bm, Cm: (B, L, N); h0: None
     or (B, H, P, N) f32. Returns (y (B, L, H, P), final state (B, H, P,
     N) f32)."""
-    refuse_grad("ssd_scan", xt, da, Bm, Cm, h0)
+    check_inputs("ssd_scan", xt, da, Bm, Cm, h0)
     if xt.device.type == "cpu":
         return ref.ssd_chunked(xt, da, Bm, Cm, chunk, h0)
     return kernel.ssd_scan(

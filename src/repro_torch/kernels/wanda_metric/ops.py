@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.no_backward import refuse_grad
+from repro_torch.kernels.no_backward import check_inputs
 from repro_torch.kernels.wanda_metric import kernel, ref
 
 
@@ -15,7 +15,7 @@ def outlier_ratio(w: torch.Tensor, anorm: torch.Tensor,
     CUDA: pass 1 sums ω tile by tile, ``thresh = max(α·mean, 1e-30)`` is
     formed on the device, pass 2 counts ω > thresh. CPU: the plain
     version, exactly ``pod.outlier_ratio(weight_metric(...))``."""
-    refuse_grad("outlier_ratio", w, anorm)
+    check_inputs("outlier_ratio", w, anorm)
     if w.device.type == "cpu":
         return ref.outlier_ratio_ref(w, anorm, alpha)
     anorm = anorm.float().contiguous()

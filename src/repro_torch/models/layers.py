@@ -15,6 +15,15 @@ they run the plain versions, the latter the chunked path the JAX package
 runs. With ``train`` (set by ``transformer.loss_fn``) a long causal
 sequence takes that chunked path on any device: it is the path the
 reference trains on, and the kernels have no backward pass.
+
+Under an active mesh (``distributed/axes.py::use_mesh``) the tensors are
+DTensors and the JAX package's sharding hints take effect: heads over
+'model', the batch over the data axes, and, for train and prefill, the
+tensor-parallel head layout (kv expanded to full heads and heads
+zero-padded to a multiple of the model axis). Attention itself, the
+flash kernel included, runs on each rank's local shards
+(``_on_head_shards``); heads are independent, so no kernel sees a
+DTensor. With no mesh every hint is a no-op.
 """
 from __future__ import annotations
 
@@ -24,6 +33,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import axes as AX
+from repro_torch.distributed.axes import hint, hint_heads, model_axis_size
 from repro_torch.models.specs import AttentionSpec, MLPSpec
 from repro_torch.models.taps import tap
 
@@ -44,26 +55,47 @@ def init_norm(kind: str, dim: int, dtype=torch.float32,
     return p
 
 
-def apply_norm(params: dict, kind: str, x: torch.Tensor,
-               eps: float = 1e-6) -> torch.Tensor:
+def _norm(x: torch.Tensor, scale: torch.Tensor, bias, kind: str,
+          eps: float) -> torch.Tensor:
     dtype = x.dtype
     x32 = x.float()
     if kind == "rmsnorm":
         var = x32.square().mean(dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(var + eps)
-        return (y * params["scale"].float()).to(dtype)
+        return (y * scale.float()).to(dtype)
     mean = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, keepdim=True, unbiased=False)
     y = (x32 - mean) * torch.rsqrt(var + eps)
-    y = y * params["scale"].float() + params["bias"].float()
+    y = y * scale.float() + bias.float()
     return y.to(dtype)
+
+
+def apply_norm(params: dict, kind: str, x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Over the last dim; under a mesh on each rank's rows of ``x`` (the
+    residual stream's layout, the last dim whole)."""
+    rows = (("batch", "residual_seq", None) if x.dim() == 3
+            else ("batch",) + (None,) * (x.dim() - 1))
+    return AX.on_shards(lambda x, scale, bias: _norm(x, scale, bias, kind,
+                                                     eps),
+                        {0: rows}, (rows, x.shape), x, params["scale"],
+                        params.get("bias"))
 
 
 # ---------------------------------------------------------------- RoPE
 
 def rope_embed(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """Rotary embedding. x: (B, S, H, D), positions: (B, S)."""
+    """Rotary embedding. x: (B, S, H, D), positions: (B, S). Under a mesh
+    on each rank's batch rows and heads (head_dim whole)."""
+    heads = ("batch", None, "heads", None)
+    return AX.on_shards(lambda x, p: _rope(x, p, theta),
+                        {0: heads, 1: ("batch", None)}, (heads, x.shape),
+                        x, positions)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor,
+          theta: float) -> torch.Tensor:
     half = x.shape[-1] // 2
     freqs = torch.exp(-math.log(theta)
                       * torch.arange(half, dtype=torch.float32,
@@ -258,18 +290,56 @@ def _paged_attention(spec: AttentionSpec, q, k, v, positions, cache: dict,
     return out, {"k": ck, "v": cv}
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, S, d) @ (d, H, D) -> (B, S, H, D)."""
+def _project_local(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     B, S, d = x.shape
     return (x.reshape(B * S, d) @ w.reshape(d, -1)).reshape(
         B, S, *w.shape[1:])
+
+
+def _project(x: torch.Tensor, w: torch.Tensor, kv: bool = False):
+    """(B, S, d) @ (d, H, D) -> (B, S, H, D). Under a mesh on local
+    shards, contracting over the whole d: the output laid out as
+    ``hint_heads`` lays it out (heads, else head_dim, over 'model')."""
+    mesh = AX.active_mesh()
+    if mesh is None:
+        return _project_local(x, w)
+    so = AX.heads_spec(mesh, tuple(x.shape[:2]) + tuple(w.shape[1:]), kv)
+    return AX.local_map(_project_local, so,
+                        ((so[0], None, None), (None,) + so[2:]))(x, w)
+
+
+def _out_project_local(out: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    B, S = out.shape[:2]
+    y = out.reshape(B * S, -1) @ o.reshape(-1, o.shape[-1])
+    return y.reshape(B, S, -1)
+
+
+def _out_project(out: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) @ (H, D, d) -> (B, S, d). Under a mesh on local
+    shards laid out by ``hint_heads``: partial sums over the axis that
+    splits heads or head_dim, reduced where the output is next laid
+    out."""
+    mesh = AX.active_mesh()
+    if mesh is None:
+        return _out_project_local(out, o)
+    so = AX.heads_spec(mesh, out.shape)
+    return AX.local_map(_out_project_local, (so[0], None, None),
+                        (so, so[2:] + (None,)),
+                        partial=tuple(a for a in so[2:] if a))(out, o)
 
 
 def _write_cache(c: torch.Tensor, u: torch.Tensor, ci) -> None:
     """Write ``u`` (B, S, ...) into ``c`` (B, S_max, ...) at sequence
     offset ``ci``: an int (whole batch) or a (B,) tensor (each sequence
     at its own offset). The start is clamped so the write fits, as
-    ``dynamic_update_slice`` clamps it in the JAX package. In place."""
+    ``dynamic_update_slice`` clamps it in the JAX package. In place; a
+    sharded cache (its sequence dim whole) is written shard by shard."""
+    if AX.is_dtensor(c):
+        u = AX.to_placements(u, c.device_mesh, AX.placements_spec(c))
+        if isinstance(ci, torch.Tensor):
+            ci = AX.to_placements(ci, c.device_mesh,
+                                  AX.placements_spec(c)[:1]).to_local()
+        return _write_cache(c.to_local(), u.to_local(), ci)
     S, S_max = u.shape[1], c.shape[1]
     if isinstance(ci, int):
         start = min(max(ci, 0), S_max - S)
@@ -289,6 +359,23 @@ def _cache_index(cache_index):
             return int(cache_index)
         return cache_index.long()
     return int(cache_index)
+
+
+def _on_head_shards(fn, q, k, v, *extra):
+    """``fn(q, k, v, *extra)`` — attention, independent across batch rows
+    and heads — on each rank's local shards when a mesh is active: the
+    batch over the data axes, heads over 'model' when both head counts
+    divide it (else whole on every rank), head_dim whole. ``extra``
+    tensors (B, ...) split with the batch. With no mesh, ``fn`` as is."""
+    mesh = AX.active_mesh()
+    if mesh is None:
+        return fn(q, k, v, *extra)
+    sq = AX.resolve_spec(mesh, q.shape, ("batch", None, "heads", None))
+    sk = AX.resolve_spec(mesh, k.shape, ("batch", None, "kv_heads", None))
+    if sq[2] is None or sk[2] is None:
+        sq, sk = sq[:2] + (None, None), sk[:2] + (None, None)
+    se = [(sq[0],) + (None,) * (e.dim() - 1) for e in extra]
+    return AX.local_map(fn, sq, (sq, sk, sk, *se))(q, k, v, *extra)
 
 
 def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
@@ -312,8 +399,8 @@ def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
     dtype = x.dtype
     tap("attn_qkv", x)
     q = _project(x, params["q"].to(dtype))
-    k = _project(x, params["k"].to(dtype))
-    v = _project(x, params["v"].to(dtype))
+    k = _project(x, params["k"].to(dtype), kv=True)
+    v = _project(x, params["v"].to(dtype), kv=True)
     if spec.qkv_bias:
         q = q + params["q_bias"].to(dtype)
         k = k + params["k_bias"].to(dtype)
@@ -322,8 +409,32 @@ def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
         q = rope_embed(q, positions, spec.rope_theta)
         k = rope_embed(k, positions, spec.rope_theta)
 
-    new_cache = None
+    # tensor-parallel head layout for train and prefill (a real sequence
+    # dim): GQA groups whose heads cannot shard over the model axis get
+    # kv expanded to full heads and every head count zero-padded to a
+    # multiple of it; the padded heads are sliced off before the
+    # o-projection. The cache keeps the compact GQA layout, and decode
+    # (S == 1) stays compact. Off with no mesh (tp == 1).
     B, S = x.shape[0], x.shape[1]
+    n_q_orig = q.shape[2]
+    tp = model_axis_size()
+    expand = tp > 1 and bool(spec.n_kv % tp or spec.n_q % tp) and S > 1
+    pad_heads = (-spec.n_q) % tp if expand else 0
+
+    def expand_heads(q, k, v):
+        k, v = (torch.repeat_interleave(t, spec.n_q // spec.n_kv, dim=2)
+                for t in (k, v))
+        return tuple(F.pad(t, (0, 0, 0, pad_heads)) for t in (q, k, v))
+
+    def tp_layout(q, k, v):
+        if expand:          # on each rank's batch rows, all heads
+            rows = AX.resolve_spec(AX.active_mesh(), q.shape,
+                                   ("batch", None, None, None))
+            q, k, v = AX.local_map(expand_heads, [rows] * 3,
+                                   (rows,) * 3)(q, k, v)
+        return hint_heads(q), hint_heads(k, kv=True), hint_heads(v, kv=True)
+
+    new_cache = None
     if cache is not None and block_tables is not None:
         out, new_cache = _paged_attention(spec, q, k, v, positions, cache,
                                           cache_index, block_tables,
@@ -336,26 +447,34 @@ def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
         new_cache = {"k": ck, "v": cv}
         if S > DENSE_ATTN_MAX and spec.causal:
             # long prefill: cache content == current tokens (index 0)
-            out = _long_causal_attention(q, ck[:, :S], cv[:, :S],
-                                         positions)
+            q, kq, vq = tp_layout(q, ck[:, :S], cv[:, :S])
+            out = _on_head_shards(_long_causal_attention, q, kq, vq,
+                                  positions)
         else:
+            q, ck, cv = tp_layout(q, ck, cv)
             S_max = ck.shape[1]
             kv_pos = torch.arange(S_max, device=x.device)[None, :].expand(
                 B, S_max)
             end = (ci[:, None] if isinstance(ci, torch.Tensor) else ci) + S
-            out = _dense_attention(q, ck, cv, positions, kv_pos,
-                                   causal=spec.causal, kv_valid=kv_pos < end)
-    elif S > DENSE_ATTN_MAX and spec.causal:
-        long_attention = (_chunked_causal_attention if train
-                          else _long_causal_attention)
-        out = long_attention(q, k, v, positions)
+            out = _on_head_shards(
+                lambda q, k, v, qp, kp, ok: _dense_attention(
+                    q, k, v, qp, kp, causal=spec.causal, kv_valid=ok),
+                q, ck, cv, positions, kv_pos, kv_pos < end)
     else:
-        out = _dense_attention(q, k, v, positions, positions,
-                               causal=spec.causal)
+        q, k, v = tp_layout(q, k, v)
+        if S > DENSE_ATTN_MAX and spec.causal:
+            long_attention = (_chunked_causal_attention if train
+                              else _long_causal_attention)
+            out = _on_head_shards(long_attention, q, k, v, positions)
+        else:
+            out = _on_head_shards(
+                lambda q, k, v, p: _dense_attention(
+                    q, k, v, p, p, causal=spec.causal), q, k, v, positions)
+    if pad_heads:
+        out = out[:, :, :n_q_orig, :]
     tap("attn_o", out, channel_axes=(-2, -1))
-    o = params["o"].to(dtype)
-    y = out.reshape(B * S, -1) @ o.reshape(-1, o.shape[-1])
-    return y.reshape(B, S, -1), new_cache
+    y = _out_project(hint_heads(out), params["o"].to(dtype))
+    return hint(y, "batch", "seq", "embed"), new_cache
 
 
 def init_attention_cache(batch: int, s_max: int, spec: AttentionSpec,
@@ -400,12 +519,28 @@ def init_mlp(gen: torch.Generator, d_model: int, spec: MLPSpec,
 
 
 def apply_mlp(params: dict, spec: MLPSpec, x: torch.Tensor) -> torch.Tensor:
+    """x: (..., d). Under a mesh on each rank's rows of ``x`` (d whole)
+    and its slice of the hidden dim (the JAX package's ``ffn`` hint):
+    the down-projection's partial sums are reduced where the output is
+    laid out ``('batch', 'seq', 'embed')``."""
     dtype = x.dtype
     tap("mlp_in", x)
-    up = x @ params["up"].to(dtype)
-    if spec.gated:
-        h = activation(spec.act, x @ params["gate"].to(dtype)) * up
-    else:
-        h = activation(spec.act, up)
-    tap("mlp_down", h)
-    return h @ params["down"].to(dtype)
+
+    def mlp(x, up_w, down_w, gate_w):
+        up = x @ up_w
+        if gate_w is not None:
+            h = activation(spec.act, x @ gate_w) * up
+        else:
+            h = activation(spec.act, up)
+        tap("mlp_down", h)
+        return h @ down_w
+    rows = (("batch", "residual_seq", None) if x.dim() == 3
+            else ("batch",) + (None,) * (x.dim() - 1))
+    up = params["up"].to(dtype)
+    y = AX.on_shards(
+        mlp, {0: rows, 1: (None, "ffn"), 2: ("ffn", None),
+              3: (None, "ffn")}, (rows, x.shape), x, up,
+        params["down"].to(dtype),
+        params["gate"].to(dtype) if spec.gated else None,
+        partial=AX.sharded_axes(up.shape, (None, "ffn")))
+    return hint(y, "batch", "seq", "embed")

@@ -3,8 +3,11 @@
 Gather/scatter dispatch with a fixed per-expert capacity: tokens are
 routed within their group (one group per sequence), scattered into
 (G, E, C, d) capacity slots, run through the experts, and gathered back
-with their gate weights. The JAX package's sharding hints have no
-counterpart on one card and are left out.
+with their gate weights. Under an active mesh (``distributed/axes.py``)
+routing, dispatch and combine run per data shard on each rank's local
+groups (groups come from the batch, so each shard's groups are its
+own), and the expert FFNs on each rank's slots laid out ``('batch',
+'experts', None, None)``, as the JAX package hints them.
 
 Serving adds two occupancy-aware dispatch shapes on top (the
 ``expert_group_linear`` / ``expert_ragged_linear`` hooks):
@@ -31,6 +34,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import axes as AX
+from repro_torch.distributed.axes import hint
 from repro_torch.models.layers import (_randn, activation, apply_mlp,
                                        init_mlp)
 from repro_torch.models.specs import MLPSpec, MoESpec
@@ -158,25 +163,18 @@ def apply_moe(params: dict, spec: MoESpec, x: torch.Tensor,
     s = (B * S) // G
     C = capacity(spec, s)
     xg = x.reshape(G, s, d)
+    if AX.active_mesh() is not None:
+        if expert_linear or expert_group_linear or expert_ragged_linear:
+            raise NotImplementedError("the MoE serving hooks take no mesh")
+        return _apply_moe_sharded(params, spec, xg, C, (B, S, d))
 
-    logits = (xg @ params["router"].to(dtype)).float()
-    probs = torch.softmax(logits, dim=-1)                    # (G, s, E)
-    gate_vals, expert_ids = torch.topk(probs, K, dim=-1)     # (G, s, K)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
+    probs, expert_ids, gate_vals, flat_ids, onehot, pos, keep, slot = \
+        _route(xg, params["router"].to(dtype), spec, C)
 
     # load-balancing auxiliary loss (Switch): E * sum_e f_e * p_e
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(expert_ids[..., 0], E).float().mean(dim=(0, 1))
     aux = E * torch.sum(me * ce)
-
-    # position of each (token, k) assignment within its expert, per group
-    flat_ids = expert_ids.reshape(G, s * K)
-    onehot = F.one_hot(flat_ids, E)                          # (G, sK, E)
-    pos = (torch.cumsum(onehot, dim=1) * onehot).sum(-1) - 1  # (G, sK)
-    keep = pos < C
-    slot = torch.where(keep, flat_ids * C + pos,
-                       torch.full_like(flat_ids, E * C))     # drop -> dump
 
     src = xg.repeat_interleave(K, dim=1)                     # (G, sK, d)
 
@@ -202,13 +200,7 @@ def apply_moe(params: dict, spec: MoESpec, x: torch.Tensor,
         out = torch.cat([out, out.new_zeros((1, d))])
         gathered = out[flat_dest].reshape(G, s, K, d)
     else:
-        # dispatch: per-group scatter into (G, E*C+1, d) slot buffers
-        rows = E * C + 1
-        flat_slot = (slot + torch.arange(G, device=dev)[:, None] * rows
-                     ).reshape(-1)
-        buf = torch.zeros((G * rows, d), dtype=dtype, device=dev)
-        buf = buf.index_add_(0, flat_slot, src.reshape(-1, d))
-        slots = buf.reshape(G, rows, d)[:, :E * C].reshape(G, E, C, d)
+        slots = _dispatch(src, slot, E, C)
 
         if expert_group_linear is not None:
             count_ge = (onehot * keep[..., None].long()).sum(dim=1)  # (G, E)
@@ -256,17 +248,115 @@ def apply_moe(params: dict, spec: MoESpec, x: torch.Tensor,
                 outs.append(out.reshape(G, C, d))
             out_slots = torch.stack(outs, dim=1)
 
-        # combine: dropped assignments index the appended zero row E*C
-        flat_out = out_slots.reshape(G, E * C, d)
-        flat_out = torch.cat([flat_out, flat_out.new_zeros((G, 1, d))],
-                             dim=1)
-        gathered = flat_out[torch.arange(G, device=dev)[:, None], slot]
-        gathered = gathered.reshape(G, s, K, d)
+        gathered = _gather_slots(out_slots, slot).reshape(G, s, K, d)
     y = torch.einsum("gskd,gsk->gsd", gathered, gate_vals.to(dtype))
+    return _add_shared(params, spec, xg, y).reshape(B, S, d), aux
 
-    if "shared" in params:
-        shared_spec = MLPSpec(d_ff=params["shared"]["up"].shape[1],
-                              act=spec.act, gated=spec.gated)
-        y = y + apply_mlp(params["shared"], shared_spec,
-                          xg.reshape(G * s, d)).reshape(G, s, d)
-    return y.reshape(B, S, d), aux
+
+def _route(xg: torch.Tensor, router: torch.Tensor, spec: MoESpec,
+           C: int) -> tuple:
+    """Top-k routing of each group's tokens ``xg`` (G, s, d) and their
+    capacity slots. Returns ``(probs (G, s, E) f32, expert_ids, gate_vals
+    (G, s, K), flat_ids, onehot, pos, keep, slot (G, s*K))``: ``slot`` is
+    each assignment's row of the (E*C + 1)-row slot buffer, the last
+    (dump) row for a capacity drop."""
+    E, K = spec.n_experts, spec.top_k
+    G, s = xg.shape[:2]
+    logits = (xg @ router).float()
+    probs = torch.softmax(logits, dim=-1)                    # (G, s, E)
+    gate_vals, expert_ids = torch.topk(probs, K, dim=-1)     # (G, s, K)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    # position of each (token, k) assignment within its expert, per group
+    flat_ids = expert_ids.reshape(G, s * K)
+    onehot = F.one_hot(flat_ids, E)                          # (G, sK, E)
+    pos = (torch.cumsum(onehot, dim=1) * onehot).sum(-1) - 1  # (G, sK)
+    keep = pos < C
+    slot = torch.where(keep, flat_ids * C + pos,
+                       torch.full_like(flat_ids, E * C))     # drop -> dump
+    return probs, expert_ids, gate_vals, flat_ids, onehot, pos, keep, slot
+
+
+def _dispatch(src: torch.Tensor, slot: torch.Tensor, E: int,
+              C: int) -> torch.Tensor:
+    """Per-group scatter of ``src`` (G, sK, d) into (G, E, C, d) capacity
+    slots, through a buffer one dump row longer."""
+    G, _, d = src.shape
+    rows = E * C + 1
+    flat_slot = (slot + torch.arange(G, device=src.device)[:, None] * rows
+                 ).reshape(-1)
+    buf = torch.zeros((G * rows, d), dtype=src.dtype, device=src.device)
+    buf = buf.index_add_(0, flat_slot, src.reshape(-1, d))
+    return buf.reshape(G, rows, d)[:, :E * C].reshape(G, E, C, d)
+
+
+def _gather_slots(out_slots: torch.Tensor,
+                  slot: torch.Tensor) -> torch.Tensor:
+    """Each assignment's expert output (G, sK, d) from ``out_slots`` (G, E,
+    C, d); dropped assignments index an appended zero row E*C."""
+    G, E, C, d = out_slots.shape
+    flat_out = out_slots.reshape(G, E * C, d)
+    flat_out = torch.cat([flat_out, flat_out.new_zeros((G, 1, d))], dim=1)
+    return flat_out[torch.arange(G, device=out_slots.device)[:, None], slot]
+
+
+def _add_shared(params: dict, spec: MoESpec, xg: torch.Tensor,
+                y: torch.Tensor) -> torch.Tensor:
+    """``y`` plus the shared experts' MLP of ``xg`` (G, s, d), if any."""
+    if "shared" not in params:
+        return y
+    G, s, d = xg.shape
+    shared_spec = MLPSpec(d_ff=params["shared"]["up"].shape[1],
+                          act=spec.act, gated=spec.gated)
+    return y + apply_mlp(params["shared"], shared_spec,
+                         xg.reshape(G * s, d)).reshape(G, s, d)
+
+
+def _apply_moe_sharded(params: dict, spec: MoESpec, xg: torch.Tensor,
+                       C: int, shape: tuple) -> tuple:
+    """``apply_moe``'s default path on DTensors: routing, dispatch and
+    combine on each rank's local groups, the expert FFNs on each rank's
+    slots sharded over the batch and the experts (``('batch', 'experts',
+    None, None)``, as the JAX package hints them), each expert's weights
+    whole on the rank that holds it. It feeds no calibration tap."""
+    dtype = xg.dtype
+    G, s, d = xg.shape
+    E, K = spec.n_experts, spec.top_k
+
+    def route(xg, router):
+        probs, expert_ids, gate_vals, *_, slot = _route(xg, router, spec, C)
+        slots = _dispatch(xg.repeat_interleave(K, dim=1), slot, E, C)
+        top1 = F.one_hot(expert_ids[..., 0], E).float()
+        return slots, slot, gate_vals, probs, top1
+    g = ("batch", None, None)
+    slots, slot, gate_vals, probs, top1 = AX.on_shards(
+        route, {0: g, 1: (None, None)},
+        [(g + (None,), (G, E, C, d)), (g[:2], (G, s * K)), (g, (G, s, K)),
+         (g, (G, s, E)), (g, (G, s, E))],
+        hint(xg, *g), params["router"].to(dtype))
+    # load-balancing auxiliary loss (Switch): E * sum_e f_e * p_e
+    aux = E * torch.sum(probs.mean(dim=(0, 1)) * top1.mean(dim=(0, 1)))
+
+    def experts(slots, up_w, down_w, gate_w):
+        up = torch.einsum("gecd,edf->gecf", slots, up_w)
+        if gate_w is not None:
+            h = activation(spec.act, torch.einsum(
+                "gecd,edf->gecf", slots, gate_w)) * up
+        else:
+            h = activation(spec.act, up)
+        return torch.einsum("gecf,efd->gecd", h, down_w)
+    ge = ("batch", "experts", None, None)
+    w = ("experts", None, None)
+    gate_w = params["gate"].to(dtype) if spec.gated else None
+    out_slots = AX.on_shards(
+        experts, {0: ge, 1: w, 2: w, 3: w}, (ge, (G, E, C, d)),
+        hint(slots, *ge), params["up"].to(dtype), params["down"].to(dtype),
+        gate_w)
+
+    def combine(out_slots, slot, gate_vals):
+        gathered = _gather_slots(out_slots, slot)
+        gathered = gathered.reshape(*gate_vals.shape, -1)
+        return torch.einsum("gskd,gsk->gsd", gathered, gate_vals.to(dtype))
+    y = AX.on_shards(combine, {0: g + (None,), 1: g[:2], 2: g},
+                     (g, (G, s, d)), out_slots, slot, gate_vals)
+    return _add_shared(params, spec, xg, y).reshape(shape), aux

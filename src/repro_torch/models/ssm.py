@@ -13,6 +13,15 @@ A single decode step (``L == 1`` with a cache) runs the recurrence
 itself in plain torch, as the JAX package does.
 The cache ``{'conv': (B, K-1, conv_dim), 'state': (B, H, P, N) f32}`` is
 updated in place and also returned.
+
+Under an active mesh the JAX package's sharding hints take effect on
+the projections, and the rest runs on each rank's local shards: the
+convolution and the gates, and the gated norm, on its batch rows (the
+channels whole); the chunked scan (kernel 10 on CUDA shards) and the
+decode recurrence on its batch rows and SSD heads, heads over 'model'
+where they divide it, as the JAX package hints them. Batch rows and
+heads are independent in all of these. With no mesh every hint is a
+no-op and ``on_shards`` calls the function as it is.
 """
 from __future__ import annotations
 
@@ -22,6 +31,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import axes as AX
+from repro_torch.distributed.axes import hint
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models.layers import _randn, gen_device
@@ -95,6 +106,15 @@ def ssd_step(h: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
     return torch.einsum("bn,bhpn->bhp", Cm.float(), h)
 
 
+def _assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; a sharded ``dst`` is written shard by shard,
+    ``src`` laid out as ``dst`` first."""
+    if AX.is_dtensor(dst):
+        src = AX.to_placements(src, dst.device_mesh, AX.placements_spec(dst))
+        dst, src = dst.to_local(), src.to_local()
+    dst.copy_(src)
+
+
 def apply_mamba(params: dict, spec: MambaSpec, x: torch.Tensor,
                 cache: Optional[dict] = None, train: bool = False) -> tuple:
     """x: (B, L, d_model). cache: {'conv': (B, K-1, conv_dim), 'state':
@@ -106,50 +126,87 @@ def apply_mamba(params: dict, spec: MambaSpec, x: torch.Tensor,
     di = spec.d_inner
 
     tap("mamba_in", x)
-    zxbcdt = x @ params["in_proj"].to(dtype)               # (B, L, in_dim)
-    z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:di + spec.conv_dim]
-    dt_raw = zxbcdt[..., di + spec.conv_dim:]              # (B, L, H)
+    # the projections on each rank's rows and its slice of the projected
+    # dim (the JAX package's "inner" hint), the embed dim gathered whole
+    rows, rows4 = ("batch", None, None), ("batch", None, None, None)
+    w_in = params["in_proj"].to(dtype)
+    zxbcdt = AX.on_shards(lambda x, w: x @ w, {0: rows, 1: (None, "inner")},
+                          (("batch", None, "inner"), (B, L, w_in.shape[1])),
+                          x, w_in)                         # (B, L, in_dim)
 
-    xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"],
-                                 cache["conv"] if cache is not None
-                                 else None)
-    xbc = F.silu(xbc)
-    xs = xbc[..., :di].reshape(B, L, H, P)
-    Bm = xbc[..., di:di + N]                               # (B, L, N)
-    Cm = xbc[..., di + N:di + 2 * N]
+    def mix_in(zxbcdt, conv_w, conv_b, dt_bias, A_log, carry):
+        Bl = zxbcdt.shape[0]
+        z = zxbcdt[..., :di]
+        xbc = zxbcdt[..., di:di + spec.conv_dim]
+        dt_raw = zxbcdt[..., di + spec.conv_dim:]          # (B, L, H)
+        xbc, new_conv = _causal_conv(xbc, conv_w, conv_b, carry)
+        xbc = F.silu(xbc)
+        xs = xbc[..., :di].reshape(Bl, L, H, P)
+        Bm = xbc[..., di:di + N]                           # (B, L, N)
+        Cm = xbc[..., di + N:di + 2 * N]
+        dt = _softplus(dt_raw.float() + dt_bias.float())
+        # exp in the leaf's dtype, as the JAX package does (bf16 when a
+        # train step casts every leaf; the engines keep A_log in f32)
+        A = -torch.exp(A_log).float()                      # (H,) < 0
+        da = dt * A                                        # (B, L, H)
+        xt = xs * dt[..., None].to(dtype)
+        return z, xs, Bm, Cm, da, xt, new_conv
 
-    dt = _softplus(dt_raw.float() + params["dt_bias"].float())
-    # exp in the leaf's dtype, as the JAX package does (bf16 when a
-    # train step casts every leaf; the engines keep A_log in f32)
-    A = -torch.exp(params["A_log"]).float()                # (H,) < 0
-    da = dt * A                                            # (B, L, H)
-    xt = xs * dt[..., None].to(dtype)
+    # the conv and the gates on each rank's batch rows, channels whole
+    K = params["conv_w"].shape[1]
+    z, xs, Bm, Cm, da, xt, new_conv = AX.on_shards(
+        mix_in, {0: rows, 5: rows},
+        [(rows, (B, L, di)), (rows4, (B, L, H, P)), (rows, (B, L, N)),
+         (rows, (B, L, N)), (rows, (B, L, H)), (rows4, (B, L, H, P)),
+         (rows, (B, K - 1, spec.conv_dim))],
+        zxbcdt, params["conv_w"], params["conv_b"], params["dt_bias"],
+        params["A_log"], cache["conv"] if cache is not None else None)
 
+    # the recurrence on each rank's batch rows and SSD heads
     if cache is not None and L == 1:
-        y = ssd_step(cache["state"], da[:, 0], Bm[:, 0], Cm[:, 0],
-                     xt[:, 0])[:, None].to(dtype)          # (B, 1, H, P)
+        y, new_state = AX.on_shards(
+            lambda h, da, Bm, Cm, xt: (ssd_step(h, da, Bm, Cm, xt), h),
+            {0: ("batch", "heads", None, None), 1: ("batch", "heads"),
+             2: ("batch", None), 3: ("batch", None),
+             4: ("batch", "heads", None)},
+            [(("batch", "heads", None), (B, H, P)),
+             (("batch", "heads", None, None), (B, H, P, N))],
+            cache["state"], da[:, 0], Bm[:, 0], Cm[:, 0], xt[:, 0])
+        y = y[:, None].to(dtype)                           # (B, 1, H, P)
     else:
         scan = ssd_ref.ssd_chunked if train else ssd_ops.ssd_scan
-        y, new_state = scan(xt, da, Bm, Cm, spec.chunk,
-                            cache["state"] if cache is not None else None)
-        if cache is not None:
-            cache["state"].copy_(new_state)
+        seq = ("batch", None, "heads", None)
+        y, new_state = AX.on_shards(
+            lambda xt, da, Bm, Cm, h0: scan(xt, da, Bm, Cm, spec.chunk, h0),
+            {0: seq, 1: seq[:3], 2: rows, 3: rows,
+             4: ("batch", "heads", None, None)},
+            [(seq, xt.shape), (("batch", "heads", None, None), (B, H, P, N))],
+            xt, da, Bm, Cm, cache["state"] if cache is not None else None)
+    if cache is not None:
+        _assign(cache["state"], new_state)
 
-    y = y + params["D"].to(dtype)[None, None, :, None] * xs
-    y = y.reshape(B, L, di)
-
-    # gated RMSNorm, then the out-projection
-    y = y * F.silu(z)
-    var = y.float().square().mean(dim=-1, keepdim=True)
-    y = (y.float() * torch.rsqrt(var + NORM_EPS)).to(dtype)
-    y = y * params["norm_scale"].to(dtype)
+    def mix_out(y, xs, z, D, norm_scale):
+        y = y + D.to(dtype)[None, None, :, None] * xs
+        y = y.reshape(*z.shape)
+        # gated RMSNorm
+        y = y * F.silu(z)
+        var = y.float().square().mean(dim=-1, keepdim=True)
+        y = (y.float() * torch.rsqrt(var + NORM_EPS)).to(dtype)
+        return y * norm_scale.to(dtype)
+    y = AX.on_shards(mix_out, {0: rows4, 1: rows4, 2: rows},
+                     (rows, (B, L, di)), y, xs, z, params["D"],
+                     params["norm_scale"])
     tap("mamba_out", y)
-    out = y @ params["out_proj"].to(dtype)
+    w_out = params["out_proj"].to(dtype)
+    out = AX.on_shards(lambda y, w: y @ w, {0: ("batch", None, "inner"),
+                                           1: ("inner", None)},
+                       (rows, (B, L, w_out.shape[1])), y, w_out,
+                       partial=AX.sharded_axes(w_out.shape, ("inner", None)))
+    out = hint(out, "batch", "seq", "embed")
 
     if cache is None:
         return out, None
-    cache["conv"].copy_(new_conv)
+    _assign(cache["conv"], new_conv)
     return out, cache
 
 

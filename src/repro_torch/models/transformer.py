@@ -13,6 +13,11 @@ JAX package.
 ``loss_fn`` runs the forward with ``train=True``: the plain attention
 and SSD paths the reference trains on (the kernels have no backward),
 each block under activation checkpointing when ``cfg.remat`` is set.
+
+Under an active mesh (``distributed/axes.py::use_mesh``) params, tokens
+and caches are DTensors (``distributed/sharding.py``) and the JAX
+package's hints lay the residual stream out as it does: the batch over
+the data axes, the sequence over ``residual_seq`` when a rule maps it.
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.tree import cast_tree
+from repro_torch.distributed import axes as AX
+from repro_torch.distributed.axes import hint
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -258,6 +265,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             positions = ar.expand(B, S)
 
     x = params["embed"]["table"][tokens.long()].to(compute_dtype)
+    x = hint(x, "batch", "seq", "embed")
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute_dtype)
     if frontend_embeds is not None:
@@ -265,6 +273,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         x = torch.cat([frontend_embeds.to(compute_dtype), x[:, F:]], dim=1)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    x = hint(x, "batch", "residual_seq", "embed")
     new_cache = [] if cache is not None else None
     for i in range(cfg.n_layers):
         ci = cache[i] if cache is not None else None
@@ -277,15 +286,22 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                    **kw)
         else:
             x, nci, a = apply_block(*args, **kw)
+        x = hint(x, "batch", "residual_seq", "embed")
         aux_total = aux_total + a
         if cache is not None:
             new_cache.append(nci)
 
     x = L.apply_norm(params["final_norm"], cfg.norm, x)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"]["table"].to(compute_dtype).T
+        head = params["embed"]["table"].to(compute_dtype).T
     else:
-        logits = x @ params["lm_head"]["w"].to(compute_dtype)
+        head = params["lm_head"]["w"].to(compute_dtype)
+    # under a mesh on each rank's rows and vocab slice, the head's
+    # embed dim gathered whole (as FSDP gathers a weight)
+    rows = ("batch", "residual_seq", None)
+    logits = AX.on_shards(lambda x, w: x @ w, {0: rows, 1: (None, "vocab")},
+                          (rows[:2] + ("vocab",), x.shape[:2] + head.shape[1:]),
+                          x, head)
     return logits, new_cache, aux_total
 
 
@@ -294,16 +310,22 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   vocab: Optional[int] = None) -> torch.Tensor:
     """Mean next-token CE. logits: (B, S, Vp) (padded vocab ok), labels:
-    (B, S). The padded columns get -1e30 added, as in the JAX package."""
-    logits = logits.float()
-    if vocab is not None and vocab < logits.shape[-1]:
-        pad = logits.shape[-1] - vocab
-        logits = logits + torch.cat([
-            torch.zeros(vocab, device=logits.device),
-            torch.full((pad,), -1e30, device=logits.device)])
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return (logz - gold).mean()
+    (B, S). The padded columns get -1e30 added, as in the JAX package.
+    Under a mesh each token's term on its rank's rows, the vocab
+    gathered whole."""
+    def per_token(logits, labels):
+        logits = logits.float()
+        if vocab is not None and vocab < logits.shape[-1]:
+            pad = logits.shape[-1] - vocab
+            logits = logits + torch.cat([
+                torch.zeros(vocab, device=logits.device),
+                torch.full((pad,), -1e30, device=logits.device)])
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+        return logz - gold
+    rows = ("batch", "seq")
+    return AX.on_shards(per_token, {0: rows + (None,), 1: rows},
+                        (rows, labels.shape), logits, labels).mean()
 
 
 def loss_fn(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -316,4 +338,5 @@ def loss_fn(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                              frontend_embeds=frontend_embeds,
                              compute_dtype=compute_dtype, train=True)
     ce = cross_entropy(logits, labels, cfg.vocab)
+    ce, aux = hint(ce), hint(aux)          # replicated under a mesh
     return ce + aux_weight * aux, (ce, aux)

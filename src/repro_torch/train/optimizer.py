@@ -10,7 +10,10 @@ The state is a nested dict of tensors whose paths are the JAX package's
 (``m``, ``v``, ``step``; a factored ``v`` leaf is ``{row, col}`` or
 ``{full}``), so a training checkpoint restores in either package.
 Every scalar (learning rate, bias corrections) stays a 0-d tensor on the
-params' device: a step never waits for the host.
+params' device: a step never waits for the host. The params may be
+DTensors (``distributed/sharding.py``): the update is elementwise, so
+each shard updates itself, and the global norm reduces over every
+shard.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import math
 import torch
 
 from repro_torch.common.tree import leaves, tree_map, zip_leaves
+from repro_torch.distributed.axes import full
 
 F32 = torch.float32
 
@@ -76,7 +80,9 @@ def init_opt(params, cfg: OptConfig) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    sq = [x.float().square().sum() for x in leaves(tree)]
+    """A plain 0-d tensor: a DTensor leaf's square sum is reduced over
+    every shard (a collective: every rank must call it)."""
+    sq = [full(x.float().square().sum()) for x in leaves(tree)]
     return torch.stack(sq).sum().sqrt()
 
 

@@ -6,6 +6,11 @@ run started by either package resumes in the other. A scanned config
 (``scan_layers=True``) trains unrolled here and is stacked back into
 JAX's scanned layout at every save, and unstacked at restore
 (``common/interop.py``).
+
+With a ``mesh`` the state is sharded by ``distributed/sharding.py``'s
+specs (params and both moments) and each batch is laid out by
+``batch_spec``; every rank runs the loop on the same batches, and a
+save gathers the state whole (rank 0 writes).
 """
 from __future__ import annotations
 
@@ -20,6 +25,9 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.interop import stack_blocks, unstack_blocks
 from repro_torch.common.tree import tree_map
 from repro_torch.data.pipeline import Prefetcher
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.axes import full
+from repro_torch.distributed.elastic import reshard_state
 from repro_torch.distributed.fault import PreemptionHandler, StragglerMonitor
 from repro_torch.models.specs import ModelConfig
 from repro_torch.train import optimizer as OPT
@@ -46,7 +54,9 @@ class Trainer:
     asks for another), or from the latest checkpoint in ``ckpt`` when
     there is one. ``data_it`` yields ``(tokens, labels)`` numpy or tensor
     pairs of shape (B, S). ``compute_dtype`` defaults to bf16 over f32
-    master params."""
+    master params. ``mesh`` (a ``DeviceMesh``) shards the state by the
+    standard specs; ``batch_spec`` (default: the batch over the data
+    axes) lays out each batch."""
 
     def __init__(self, cfg: ModelConfig, opt_cfg: OPT.OptConfig,
                  data_it: Iterator, ckpt: Optional[CheckpointManager] = None,
@@ -54,8 +64,12 @@ class Trainer:
                  compute_dtype=None, seed: int = 0,
                  log_fn: Optional[Callable] = None,
                  prefetch: bool = True, async_checkpoint: bool = True,
-                 device=None):
+                 device=None, mesh=None, batch_spec=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and opt_cfg.factored:
+            raise NotImplementedError("a factored second moment is not "
+                                      "sharded by the Trainer")
         self.cfg = cfg
         self.run_cfg = cfg.unrolled() if cfg.scan_layers else cfg
         self.opt_cfg = opt_cfg
@@ -64,11 +78,15 @@ class Trainer:
         self.async_checkpoint = async_checkpoint
         self.log_fn = log_fn or (lambda *_: None)
         self.data = Prefetcher(data_it) if prefetch else data_it
+        specs = (SH.param_specs(mesh, self.run_cfg) if mesh is not None
+                 else None)
         self.train_step = make_train_step(
             self.run_cfg, opt_cfg, n_microbatches=n_microbatches,
-            compute_dtype=compute_dtype or torch.bfloat16)
+            compute_dtype=compute_dtype or torch.bfloat16, mesh=mesh,
+            batch_spec=batch_spec, param_specs=specs)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.state = init_train_state(gen, self.run_cfg, opt_cfg)
+        self.state = self._on_mesh(init_train_state(gen, self.run_cfg,
+                                                    opt_cfg))
         self.step = 0
         self.preemption = PreemptionHandler().install()
         self.straggler = StragglerMonitor()
@@ -90,24 +108,33 @@ class Trainer:
                         "v": _with_blocks(opt["v"],
                                           blocks_fn(opt["v"]["blocks"]))}}
 
+    def _on_mesh(self, state: dict) -> dict:
+        """``state`` sharded onto the mesh, if there is one."""
+        if self.mesh is None:
+            return state
+        return reshard_state(state, self.mesh, self.run_cfg)
+
     def _checkpoint_tree(self) -> dict:
         """The state in the on-disk layout: scanned configs stack the
-        blocks on the host (JAX's layout), unrolled ones save as is."""
+        blocks on the host (JAX's layout), gathered whole when sharded;
+        unrolled ones save as is."""
         if not self.cfg.scan_layers:
             return self.state
         P = len(self.cfg.pattern)
         return self._to_layout(self.state, lambda b: stack_blocks(
-            tree_map(lambda x: x.detach().cpu(), b), P))
+            tree_map(lambda x: full(x).detach().cpu(), b), P))
 
     def _restore(self) -> dict:
+        meta = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                              device="meta"), self.state)
+        device = self.device if self.mesh is None else "cpu"
         if not self.cfg.scan_layers:
-            return self.ckpt.restore(self.state, device=self.device)
+            return self._on_mesh(self.ckpt.restore(meta, device=device))
         P, n = len(self.cfg.pattern), self.cfg.n_periods
-        meta = tree_map(lambda x: torch.empty_like(x, device="meta"),
-                        self.state)
         like = self._to_layout(meta, lambda b: stack_blocks(b, P))
-        stored = self.ckpt.restore(like, device=self.device)
-        return self._to_layout(stored, lambda b: unstack_blocks(b, n))
+        stored = self.ckpt.restore(like, device=device)
+        return self._on_mesh(
+            self._to_layout(stored, lambda b: unstack_blocks(b, n)))
 
     # -------------------------------------------------------------- run
 

@@ -1392,3 +1392,74 @@ def test_train_step_on_the_card_launches_no_kernel(cuda):
                   compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     assert counters.snapshot() == {"flash_attention": 2, "ssd_scan": 1}
+
+
+# ------------------------------------------------------------ distribution
+
+def check_op_refuses_dtensor(device, kernel: str, mesh) -> dict:
+    """Each tensor input of the op, made a (replicated) DTensor on
+    ``mesh``, makes the op raise before any launch, with a message that
+    names ``local_map``. Returns the launch counts (empty)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    op, args = kernel_op_cases(device)[kernel]
+    counters.reset()
+    n = 0
+    for i, a in enumerate(args):
+        if not torch.is_tensor(a):
+            continue
+        dt = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                run_check=False)
+        with pytest.raises(TypeError, match="local_map"):
+            op(*args[:i], dt, *args[i + 1:])
+        n += 1
+    assert n >= 2
+    return counters.snapshot()
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A world of 1 on NCCL and its (1, 1) host mesh, torn down after."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    init_distributed("cuda")
+    try:
+        yield make_host_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kernel", KERNEL_OPS)
+def test_kernel_op_refuses_a_dtensor(nccl_mesh, kernel):
+    assert check_op_refuses_dtensor(torch.device("cuda"), kernel,
+                                    nccl_mesh) == {}
+
+
+def test_sharded_forward_launches_flash_on_local_shards(nccl_mesh):
+    """A sharded forward over more than DENSE_ATTN_MAX causal positions
+    launches kernel 4 on each rank's local shards (through local_map) as
+    often as the unsharded forward does, with the same logits."""
+    from repro_torch.distributed import axes as AX
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.specs import AttentionSpec, MLPSpec
+    cfg = ModelConfig(
+        name="t", d_model=128, vocab=256, vocab_pad_multiple=16,
+        pattern=(LayerSpec(AttentionSpec(n_q=4, n_kv=2, head_dim=64),
+                           MLPSpec(d_ff=256)),),
+        n_periods=2, scan_layers=False, remat=False)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_model(gen, cfg)
+    toks = torch.randint(0, 256, (2, 3072), generator=gen, device=dev)
+    with torch.no_grad():
+        counters.reset()
+        ref = T.forward(params, cfg, toks, compute_dtype=torch.float32)[0]
+        plain = counters.snapshot()
+        sp = SH.shard_params(params, nccl_mesh, cfg)
+        counters.reset()
+        with AX.use_mesh(nccl_mesh):
+            lo = T.forward(sp, cfg, SH.shard_inputs(toks, nccl_mesh),
+                           compute_dtype=torch.float32)[0]
+        sharded = counters.snapshot()
+    assert plain.get("flash_attention", 0) == 2
+    assert sharded == plain
+    torch.testing.assert_close(lo.full_tensor(), ref, atol=1e-3, rtol=0)

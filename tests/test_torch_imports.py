@@ -63,7 +63,11 @@ def test_port_files_import_no_jax_and_no_repro():
             "configs/phi3_medium_14b.py", "configs/qwen2_72b.py",
             "configs/nemotron_4_340b.py", "configs/qwen2_vl_2b.py",
             "configs/musicgen_large.py",
-            "configs/llama4_scout_17b_16e.py"} <= rel
+            "configs/llama4_scout_17b_16e.py", "configs/shapes.py",
+            "distributed/axes.py", "distributed/sharding.py",
+            "distributed/pipeline.py", "distributed/compression.py",
+            "distributed/elastic.py", "launch/mesh.py", "launch/specs.py",
+            "launch/analysis.py", "launch/dryrun.py"} <= rel
     bad = {os.path.relpath(f, REPO): sorted(set(r for r in _imported_roots(f)
                                                 if r in FORBIDDEN))
            for f in files}
@@ -79,6 +83,8 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                               "repro_torch.")]
 for m in mods:
     importlib.import_module(m)
+# the dry-run imports torch's fake process group only when it runs
+assert "torch.testing._internal.distributed.fake_pg" not in sys.modules
 sys.argv = ["chip_smoke.py", "--help"]
 try:
     runpy.run_path(sys.argv_path, run_name="__main__")
@@ -137,8 +143,8 @@ def test_serve_entry_raises_without_cuda_unless_cpu(monkeypatch, capsys):
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--smoke", "--steps", "2"])
-    with pytest.raises(SystemExit):
-        train.main(["--smoke", "--mesh", "host", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--smoke", "--mesh", "host", "--steps", "2"])
     train.build_parser().print_help()
-    assert "--mesh host) is not ported yet" in " ".join(
-        capsys.readouterr().out.split())
+    assert "torchrun --nproc-per-node N -m repro_torch.launch.train " \
+        "--mesh host" in " ".join(capsys.readouterr().out.split())
