@@ -206,6 +206,11 @@ Phases, each printing one line of its own:
                 llama3-8b (2 layers, bf16 over f32 masters) within
                 ``DIST_LOSS_RTOL`` of the unsharded Trainer in loss, and
                 the sharded params' checkpoint round trip held bitwise;
+                the same pair with a factored second moment and bf16
+                momentum (the dry-run's nemotron-4-340b train cell's
+                optimizer), its whole sharded state (params, m, v's row,
+                col and full) round-tripping a checkpoint bitwise, no
+                kernel launched by either pair;
                 ``compressed_all_reduce`` over the one-rank NCCL group
                 (NCCL's all-reduce launched) bitwise equal to
                 ``compress_tree``. The process group is destroyed at the
@@ -3758,7 +3763,11 @@ def _dist_train(mesh, device, directory: str) -> dict:
     """DIST_TRAIN_STEPS Trainer steps of llama3-8b (DIST_LLAMA_LAYERS
     layers, bf16 over f32 masters) unsharded, then sharded on ``mesh``:
     losses within DIST_LOSS_RTOL; the sharded params' checkpoint round
-    trip bitwise."""
+    trip bitwise. Then the same pair with a factored second moment and
+    bf16 momentum (the dry-run's nemotron-4-340b train cell's optimizer):
+    losses within DIST_LOSS_RTOL, and the sharded run's whole state
+    (params, m, v's row, col and full) round-tripping a checkpoint
+    bitwise. No kernel launches in either pair."""
     import torch
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.common.tree import iter_paths, tree_map
@@ -3773,49 +3782,83 @@ def _dist_train(mesh, device, directory: str) -> dict:
     batch = next(SyntheticCorpus(cfg.vocab, seed=0).batches(
         DIST_TRAIN_BATCH, DIST_TRAIN_SEQ))
 
-    def trainer(m):
-        return Trainer(cfg, OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
-                                      total_steps=DIST_TRAIN_STEPS),
-                       itertools.repeat(batch, DIST_TRAIN_STEPS),
-                       compute_dtype=torch.bfloat16, device=device,
-                       mesh=m, prefetch=False)
+    def pair(opt_cfg):
+        """The Trainer unsharded, then on ``mesh``: (reports, the sharded
+        Trainer, seconds)."""
+        t0 = time.perf_counter()
+        reports = {}
+        for name, m in (("plain", None), ("sharded", mesh)):
+            tr = Trainer(cfg, opt_cfg,
+                         itertools.repeat(batch, DIST_TRAIN_STEPS),
+                         compute_dtype=torch.bfloat16, device=device,
+                         mesh=m, prefetch=False)
+            try:
+                reports[name] = tr.run(DIST_TRAIN_STEPS)
+            finally:
+                tr.preemption.uninstall()
+            if m is None:
+                del tr
+                torch.cuda.empty_cache()
+        lp, ls = reports["plain"].losses, reports["sharded"].losses
+        rel = max(abs(a - b) / abs(b) for a, b in zip(ls, lp))
+        if len(ls) != DIST_TRAIN_STEPS or not rel <= DIST_LOSS_RTOL:
+            raise AssertionError(f"sharded losses {ls} vs {lp} "
+                                 f"({opt_cfg})")
+        return reports, tr, rel, time.perf_counter() - t0
+
+    def round_trip(tree, where):
+        """(seconds, bytes) of ``tree`` saved and restored; raises unless
+        every leaf comes back bitwise."""
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(where)
+        mgr.save(DIST_TRAIN_STEPS, tree, blocking=True)
+        like = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                              device="meta"), tree)
+        back = mgr.restore(like, device=device)
+        got = dict(iter_paths(back))
+        if not all(got[p].dtype == x.dtype and torch.equal(got[p], full(x))
+                   for p, x in iter_paths(tree)):
+            raise AssertionError(f"sharded checkpoint round trip of "
+                                 f"{where} not bitwise")
+        nbytes = sum(x.numel() * x.element_size() for x in got.values())
+        shutil.rmtree(where, ignore_errors=True)
+        return time.perf_counter() - t0, nbytes
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for _, x in iter_paths(tree))
+    base = dict(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                total_steps=DIST_TRAIN_STEPS)
     out = {"layers": cfg.n_layers, "steps": DIST_TRAIN_STEPS,
            "batch": DIST_TRAIN_BATCH, "seq": DIST_TRAIN_SEQ}
     counters.reset()
-    reports = {}
-    for name, m in (("plain", None), ("sharded", mesh)):
-        tr = trainer(m)
-        try:
-            reports[name] = tr.run(DIST_TRAIN_STEPS)
-        finally:
-            tr.preemption.uninstall()
-        if m is None:
-            del tr
-            torch.cuda.empty_cache()
-    if counters.snapshot():
-        raise AssertionError(f"train steps launched {counters.snapshot()}")
-    lp, ls = reports["plain"].losses, reports["sharded"].losses
-    rel = max(abs(a - b) / abs(b) for a, b in zip(ls, lp))
-    if len(ls) != DIST_TRAIN_STEPS or not rel <= DIST_LOSS_RTOL:
-        raise AssertionError(f"sharded losses {ls} vs {lp}")
-    out.update(plain_losses=lp, sharded_losses=ls, loss_rel_err=rel,
+    reports, tr, rel, out["pair_s"] = pair(OptConfig(**base))
+    out.update(plain_losses=reports["plain"].losses,
+               sharded_losses=reports["sharded"].losses, loss_rel_err=rel,
                plain_step_ms=[t * 1e3 for t in reports["plain"].step_seconds],
                sharded_step_ms=[t * 1e3
-                                for t in reports["sharded"].step_seconds])
-    params = tr.state["params"]
-    t0 = time.perf_counter()
-    mgr = CheckpointManager(directory)
-    mgr.save(DIST_TRAIN_STEPS, params, blocking=True)
-    like = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
-                                          device="meta"), params)
-    back = mgr.restore(like, device=device)
-    got = dict(iter_paths(back))
-    if not all(torch.equal(got[p], full(x)) for p, x in iter_paths(params)):
-        raise AssertionError("sharded checkpoint round trip not bitwise")
-    out["checkpoint_s"] = time.perf_counter() - t0
-    out["checkpoint_bytes"] = sum(x.numel() * x.element_size()
-                                  for x in got.values())
-    shutil.rmtree(directory, ignore_errors=True)
+                                for t in reports["sharded"].step_seconds],
+               v_bytes=nbytes(tr.state["opt"]["v"]))
+    out["checkpoint_s"], out["checkpoint_bytes"] = round_trip(
+        tr.state["params"], directory)
+    del tr
+    torch.cuda.empty_cache()
+    factored = OptConfig(**base, factored=True, m_dtype="bfloat16")
+    reports, tr, rel, out["factored_pair_s"] = pair(factored)
+    if counters.snapshot():
+        raise AssertionError(f"train steps launched {counters.snapshot()}")
+    v = tr.state["opt"]["v"]
+    kinds = {p[-1] for p, _ in iter_paths(v)}
+    if kinds != {"row", "col", "full"}:
+        raise AssertionError(f"factored v holds {kinds}")
+    out.update(factored_plain_losses=reports["plain"].losses,
+               factored_sharded_losses=reports["sharded"].losses,
+               factored_loss_rel_err=rel,
+               factored_sharded_step_ms=[
+                   t * 1e3 for t in reports["sharded"].step_seconds],
+               factored_v_bytes=nbytes(v),
+               factored_m_bytes=nbytes(tr.state["opt"]["m"]))
+    out["factored_checkpoint_s"], out["factored_checkpoint_bytes"] = \
+        round_trip(tr.state, directory + "_factored")
     return out
 
 
@@ -3883,6 +3926,13 @@ def phase_distributed(device, gpu: str) -> dict:
         plain_step_ms=out["train"]["plain_step_ms"],
         sharded_step_ms=out["train"]["sharded_step_ms"],
         checkpoint_s=out["train"]["checkpoint_s"],
+        train_pair_s=out["train"]["pair_s"],
+        factored_losses=[out["train"]["factored_plain_losses"],
+                         out["train"]["factored_sharded_losses"]],
+        v_bytes=out["train"]["v_bytes"],
+        factored_v_bytes=out["train"]["factored_v_bytes"],
+        factored_pair_s=out["train"]["factored_pair_s"],
+        factored_checkpoint_s=out["train"]["factored_checkpoint_s"],
         compression=out["compression"])
     return out
 

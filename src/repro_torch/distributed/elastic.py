@@ -53,25 +53,38 @@ def make_elastic_mesh(n_devices: Optional[int] = None, target_tp: int = 16,
 def reshard_state(state: dict, mesh, cfg: ModelConfig) -> dict:
     """Move a train state (plain tensors, or DTensors on another mesh)
     onto ``mesh`` by the standard sharding policy: params and the first
-    moment by ``param_specs``, the second moment too unless it is
-    factored (a factored ``v`` has another structure and is left where
-    it is)."""
-    from repro_torch.common.tree import tree_map
-    from repro_torch.distributed import sharding as SH
-    specs = SH.param_specs(mesh, cfg.unrolled() if cfg.scan_layers else cfg)
+    moment by ``param_specs``, the second moment by ``opt_specs``'s tree
+    (a factored ``v``'s ``row``, ``col`` and ``full`` by ``v_spec``; its
+    blocks in the scanned layout of a scanned ``cfg`` when they are
+    stacked, as ``optimizer.init_opt(..., period=P)`` keeps them).
 
-    def put(tree):
-        tree = {**tree, "blocks": SH.unrolled_blocks(tree["blocks"], cfg)}
-        return SH.shard_tree(tree_map(full, tree), specs, mesh)
+    The JAX package leaves a factored ``v`` where it is, and the next
+    jit moves it. Here it is laid out too: DTensor ops cannot mix a
+    plain ``v`` with DTensor gradients."""
+    from repro_torch.common.tree import iter_paths, tree_map
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.specs import param_struct
+    run = cfg.unrolled() if cfg.scan_layers else cfg
+    specs = SH.param_specs(mesh, run)
+
+    def put(tree, tree_specs):
+        return SH.shard_tree(tree_map(full, tree), tree_specs, mesh)
+
+    def unrolled(tree):
+        return {**tree, "blocks": SH.unrolled_blocks(tree["blocks"], cfg)}
 
     new_state = dict(state)
-    new_state["params"] = put(state["params"])
+    new_state["params"] = put(unrolled(state["params"]), specs)
     if "opt" in state:
         opt = dict(state["opt"])
-        opt["m"] = put(opt["m"])
-        try:
-            opt["v"] = put(opt["v"])
-        except (KeyError, TypeError):
-            pass        # factored v: another structure, left as it is
+        opt["m"] = put(unrolled(opt["m"]), specs)
+        v = opt["v"]
+        # a factored leaf is a {row, col} or {full} node
+        if next(iter_paths(v))[0][-1] in ("row", "col", "full"):
+            layout = cfg if isinstance(v["blocks"], tuple) else run
+            opt["v"] = put(v, SH.factored_v_specs(
+                SH.param_specs(mesh, layout), param_struct(layout)))
+        else:
+            opt["v"] = put(unrolled(v), specs)
         new_state["opt"] = opt
     return new_state

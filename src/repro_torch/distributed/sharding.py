@@ -250,6 +250,46 @@ def param_shardings(mesh, cfg: ModelConfig):
     return map_specs(lambda s: NamedSharding(mesh, s), param_specs(mesh, cfg))
 
 
+# ------------------------------------------------------- optimizer state
+
+def _drop_axis(spec: tuple, axis_from_end: int) -> tuple:
+    parts = list(spec)
+    if len(parts) >= axis_from_end:
+        del parts[len(parts) - axis_from_end]
+    return tuple(parts)
+
+
+def factorable(shape) -> bool:
+    """A leaf of this (global) shape gets a factored second moment."""
+    return len(shape) >= 2 and shape[-1] >= 2 and shape[-2] >= 2
+
+
+def v_spec(shape, spec: tuple) -> dict:
+    """A factored second moment's spec for a leaf of ``shape`` laid out
+    by ``spec``: ``{"row": spec without its last axis, "col": spec
+    without its second-to-last}``, or ``{"full": spec}``. Given the
+    shape as ``spec``, the factors' shapes."""
+    if factorable(shape):
+        return {"row": _drop_axis(spec, 1), "col": _drop_axis(spec, 2)}
+    return {"full": spec}
+
+
+def factored_v_specs(pspec_tree, param_struct):
+    """``v_spec`` at every leaf of ``param_struct`` (laid out by
+    ``pspec_tree``)."""
+    return map_tree_specs(lambda leaf, spec: v_spec(tuple(leaf.shape), spec),
+                          param_struct, pspec_tree)
+
+
+def opt_specs(pspec_tree, param_struct, opt_cfg) -> dict:
+    """Spec tree of the optimizer state, mirroring the params' (the JAX
+    package's rule): ``m`` as the params, ``v`` as the params or, when
+    ``opt_cfg.factored``, by ``v_spec``; ``step`` whole."""
+    v = (factored_v_specs(pspec_tree, param_struct) if opt_cfg.factored
+         else pspec_tree)
+    return {"m": pspec_tree, "v": v, "step": ()}
+
+
 def input_sharding(mesh, batch: int) -> tuple:
     """The spec of a (B, S) token batch."""
     return (batch_axes(mesh, batch), None)

@@ -30,6 +30,7 @@ from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.configs.shapes import SHAPES, ShapeSpec, applicable
 from repro_torch.distributed import axes as AX
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.sharding import _drop_axis, opt_specs  # noqa: F401
 from repro_torch.launch import analysis as AN
 from repro_torch.launch import specs as SPEC
 from repro_torch.launch.mesh import make_production_mesh
@@ -86,27 +87,6 @@ def fake_world(n_ranks: int) -> None:
 
 
 # ------------------------------------------------------------ shardings
-
-def _drop_axis(spec: tuple, axis_from_end: int) -> tuple:
-    parts = list(spec)
-    if len(parts) >= axis_from_end:
-        del parts[len(parts) - axis_from_end]
-    return tuple(parts)
-
-
-def opt_specs(pspec_tree, param_struct, opt_cfg: OPT.OptConfig) -> dict:
-    """Spec tree of the optimizer state, mirroring the params'."""
-    v = pspec_tree
-    if opt_cfg.factored:
-        def v_spec(leaf, spec):
-            if leaf.dim() >= 2 and leaf.shape[-1] >= 2 \
-                    and leaf.shape[-2] >= 2:
-                return {"row": _drop_axis(spec, 1),
-                        "col": _drop_axis(spec, 2)}
-            return {"full": spec}
-        v = SH.map_tree_specs(v_spec, param_struct, pspec_tree)
-    return {"m": pspec_tree, "v": v, "step": ()}
-
 
 def fake_dtensor(x: torch.Tensor, mesh, spec: tuple):
     """A DTensor of ``x``'s global shape and dtype laid out by ``spec``,

@@ -12,8 +12,16 @@ The state is a nested dict of tensors whose paths are the JAX package's
 Every scalar (learning rate, bias corrections) stays a 0-d tensor on the
 params' device: a step never waits for the host. The params may be
 DTensors (``distributed/sharding.py``): the update is elementwise, so
-each shard updates itself, and the global norm reduces over every
-shard.
+each shard updates itself, the global norm reduces over every shard,
+and a factored ``v`` is laid out by ``sharding.v_spec`` with its row
+and column means reduced across the shards.
+
+A scanned config trains unrolled, but JAX factors each period-stacked
+leaf as a whole: a per-layer vector's stack ``(n_periods, d)`` gets a
+``row`` over the periods and a ``col`` over ``d`` that the layers
+share. ``init_opt(..., period=P)`` keeps such a factored ``v``'s
+blocks in JAX's scanned layout (P slot trees of stacked leaves), and
+``apply_updates`` updates it from the unrolled params and gradients.
 """
 from __future__ import annotations
 
@@ -23,7 +31,9 @@ import math
 import torch
 
 from repro_torch.common.tree import leaves, tree_map, zip_leaves
+from repro_torch.distributed import axes as AX
 from repro_torch.distributed.axes import full
+from repro_torch.distributed.sharding import factorable, v_spec
 
 F32 = torch.float32
 
@@ -55,23 +65,43 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def _factorable(x: torch.Tensor) -> bool:
-    return x.dim() >= 2 and x.shape[-1] >= 2 and x.shape[-2] >= 2
+    return factorable(x.shape)
 
 
-def init_opt(params, cfg: OptConfig) -> dict:
-    """Zero moments on each leaf's device; ``step`` a 0-d int32 tensor
-    on the first leaf's device."""
+def _factored_zeros(x: torch.Tensor, n_periods=None) -> dict:
+    """A zero factored second moment for leaf ``x``, or for
+    ``n_periods`` such leaves stacked on a new leading axis; laid out
+    by ``v_spec`` on ``x``'s mesh when ``x`` is a DTensor."""
+    lead = () if n_periods is None else (n_periods,)
+    shape = lead + tuple(x.shape)
+    shapes = v_spec(shape, shape)
+    if not AX.is_dtensor(x):
+        return {k: torch.zeros(s, dtype=F32, device=x.device)
+                for k, s in shapes.items()}
+    from torch.distributed.tensor import zeros
+    mesh = x.device_mesh
+    specs = v_spec(shape, (None,) * len(lead) + AX.placements_spec(x))
+    return {k: zeros(s, dtype=F32, device_mesh=mesh,
+                     placements=AX.spec_placements(mesh, specs[k]))
+            for k, s in shapes.items()}
+
+
+def init_opt(params, cfg: OptConfig, period=None) -> dict:
+    """Zero moments on each leaf's device (DTensors laid out as the
+    params, a factored ``v`` by ``sharding.v_spec``); ``step`` a 0-d
+    int32 tensor on the first leaf's device. ``period`` (a scanned
+    config's pattern length; ``params['blocks']`` its unrolled layers)
+    puts a factored ``v``'s blocks in JAX's scanned layout."""
     m_dtype = getattr(torch, cfg.m_dtype)
     m = tree_map(lambda x: torch.zeros_like(x, dtype=m_dtype), params)
     if cfg.factored:
-        def init_v(x):
-            if _factorable(x):
-                return {"row": torch.zeros(x.shape[:-1], dtype=F32,
-                                           device=x.device),
-                        "col": torch.zeros(x.shape[:-2] + x.shape[-1:],
-                                           dtype=F32, device=x.device)}
-            return {"full": torch.zeros_like(x, dtype=F32)}
-        v = tree_map(init_v, params)
+        v = tree_map(_factored_zeros, params)
+        if period is not None:
+            blocks = params["blocks"]
+            n = len(blocks) // period
+            v["blocks"] = tuple(
+                tree_map(lambda x: _factored_zeros(x, n), blocks[j])
+                for j in range(period))
     else:
         v = tree_map(lambda x: torch.zeros_like(x, dtype=F32), params)
     device = next(leaves(params)).device
@@ -99,13 +129,66 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g.float() * scale, grads), gnorm
 
 
+def _mean(x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
+    """``x.mean(dim)``. On a DTensor: the local sums, summed across the
+    mesh axes that shard ``dim``, over the global length; laid out as
+    ``x`` without ``dim`` (or with it whole), no partial sum left."""
+    if not AX.is_dtensor(x):
+        return x.mean(dim, keepdim=keepdim)
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= x.dim()
+    placements = [Replicate() if p.is_shard(dim) else
+                  Shard(p.dim - 1) if p.is_shard() and p.dim > dim
+                  and not keepdim else p for p in x.placements]
+    total = x.sum(dim, keepdim=keepdim).redistribute(x.device_mesh,
+                                                      placements)
+    return total / x.shape[dim]
+
+
+def _assign(dst: torch.Tensor, value: torch.Tensor) -> None:
+    """``dst.copy_(value)``, a DTensor ``value`` laid out as ``dst``
+    first."""
+    if AX.is_dtensor(value) and value.placements != dst.placements:
+        value = value.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(value)
+
+
+def _factored_denom(row, col, b2c, eps: float) -> torch.Tensor:
+    return ((row[..., :, None] * col[..., None, :])
+            / torch.clamp(_mean(row, -1, keepdim=True)[..., None], min=1e-30)
+            / b2c).sqrt_().add_(eps)
+
+
+def _second_moment(v, g32: torch.Tensor, cfg: OptConfig, b2c) -> torch.Tensor:
+    """``v`` (a tensor, or a factored ``{row, col}`` or ``{full}``)
+    updated in place from the f32 gradient ``g32``; returns the step's
+    denominator."""
+    g2 = g32.square()
+    if isinstance(v, dict) and "row" in v:
+        row, col = v["row"], v["col"]
+        _assign(row, cfg.b2 * row + (1 - cfg.b2) * _mean(g2, -1))
+        _assign(col, cfg.b2 * col + (1 - cfg.b2) * _mean(g2, -2))
+        del g2
+        return _factored_denom(row, col, b2c, cfg.eps)
+    vf = v["full"] if isinstance(v, dict) else v
+    vf.copy_(cfg.b2 * vf + (1 - cfg.b2) * g2)
+    del g2
+    return (vf / b2c).sqrt_().add_(cfg.eps)
+
+
+def _without_blocks(tree: dict) -> dict:
+    return {k: x for k, x in tree.items() if k != "blocks"}
+
+
 @torch.no_grad()
 def apply_updates(params, grads, opt_state: dict, cfg: OptConfig):
     """One AdamW step, in place: the param, ``m`` and ``v`` tensors are
     overwritten (the counterpart of the JAX Trainer's donated state) and
     ``opt_state['step']`` is replaced. Returns ``(params, opt_state,
     stats)`` with the same trees; the arithmetic is the JAX package's,
-    operation by operation, in f32."""
+    operation by operation, in f32. A factored ``v`` whose blocks are in
+    the scanned layout (``init_opt(..., period=P)``) is updated as JAX
+    updates the stacked leaves."""
     step = opt_state["step"] + 1
     lr = schedule(cfg, step)
     gnorm = global_norm(grads)
@@ -118,28 +201,65 @@ def apply_updates(params, grads, opt_state: dict, cfg: OptConfig):
     b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=F32,
                                      device=step.device), step_f)
 
-    for p, g, m, v in zip_leaves(params, grads, opt_state["m"],
-                                 opt_state["v"]):
+    def first_moment(g, m):
+        """``m`` updated in place; returns the clipped f32 gradient."""
         g32 = g.float() * scale if scale is not None else g.float()
         m.copy_(cfg.b1 * m.float() + (1 - cfg.b1) * g32)
-        if cfg.factored and _factorable(p):
-            g2 = g32.square()
-            row, col = v["row"], v["col"]
-            row.copy_(cfg.b2 * row + (1 - cfg.b2) * g2.mean(-1))
-            col.copy_(cfg.b2 * col + (1 - cfg.b2) * g2.mean(-2))
-            del g2
-            denom = ((row[..., :, None] * col[..., None, :])
-                     / torch.clamp(row.mean(-1, keepdim=True)[..., None],
-                                   min=1e-30)
-                     / b2c).sqrt_().add_(cfg.eps)
-        else:
-            vf = v["full"] if cfg.factored else v
-            vf.copy_(cfg.b2 * vf + (1 - cfg.b2) * g32.square())
-            denom = (vf / b2c).sqrt_().add_(cfg.eps)
+        return g32
+
+    def update_param(p, m, denom):
+        """``p`` stepped in place (pass ``denom`` inline: it is freed
+        here)."""
         delta = (m.float() / b1c).div_(denom)
         del denom
         p32 = p.float()
         delta.add_(cfg.weight_decay * p32)
         p.copy_(p32 - lr * delta)
+
+    trees = (params, grads, opt_state["m"], opt_state["v"])
+    stacked = cfg.factored and isinstance(opt_state["v"].get("blocks"),
+                                          tuple)
+    for p, g, m, v in zip_leaves(*(map(_without_blocks, trees) if stacked
+                                   else trees)):
+        update_param(p, m, _second_moment(v, first_moment(g, m), cfg, b2c))
+    if stacked:
+        _update_stacked(*(t["blocks"] for t in trees), cfg, b2c,
+                        first_moment, update_param)
     opt_state["step"] = step
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}
+
+
+def _update_stacked(pb: list, gb: list, mb: list, vb: tuple,
+                    cfg: OptConfig, b2c, first_moment, update_param):
+    """The blocks' update against a scanned factored ``v`` (``vb``: P
+    slot trees whose leaves stack layers ``j, j + P, ...``), as JAX
+    updates each stacked leaf. A leaf factorable per layer keeps its
+    per-layer arithmetic (only its factors are stacked); any other
+    (a per-layer vector, whose stack factors across the layers) is
+    stacked whole, as its gradients are small."""
+    P = len(vb)
+    n = len(pb) // P
+    for j in range(P):
+        layers = [t * P + j for t in range(n)]
+        for leaf in zip_leaves(pb[j], *(pb[i] for i in layers[1:]),
+                               *(gb[i] for i in layers),
+                               *(mb[i] for i in layers), vb[j]):
+            ps, gs, ms, v = (leaf[:n], leaf[n:2 * n], leaf[2 * n:3 * n],
+                             leaf[3 * n])
+            g32s = (first_moment(g, m) for g, m in zip(gs, ms))
+            if not _factorable(ps[0]):
+                denom = _second_moment(v, torch.stack(list(g32s)), cfg, b2c)
+                for t in range(n):
+                    update_param(ps[t], ms[t], denom[t])
+                continue
+            means = [(_mean(g2, -1), _mean(g2, -2))
+                     for g2 in (g32.square() for g32 in g32s)]
+            row, col = v["row"], v["col"]
+            _assign(row, cfg.b2 * row
+                    + (1 - cfg.b2) * torch.stack([r for r, _ in means]))
+            _assign(col, cfg.b2 * col
+                    + (1 - cfg.b2) * torch.stack([c for _, c in means]))
+            del means
+            for t in range(n):
+                update_param(ps[t], ms[t], _factored_denom(
+                    row[t], col[t], b2c, cfg.eps))

@@ -169,7 +169,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OPT.OptConfig,
 
 def init_train_state(gen: torch.Generator, cfg: ModelConfig,
                      opt_cfg: OPT.OptConfig,
-                     param_dtype=torch.float32) -> dict:
-    """Random params on ``gen``'s device and a zero optimizer state."""
+                     param_dtype=torch.float32, period=None) -> dict:
+    """Random params on ``gen``'s device and a zero optimizer state
+    (``period``: see ``optimizer.init_opt``)."""
     params = T.init_model(gen, cfg, dtype=param_dtype)
-    return {"params": params, "opt": OPT.init_opt(params, opt_cfg)}
+    return {"params": params,
+            "opt": OPT.init_opt(params, opt_cfg, period=period)}

@@ -7,10 +7,16 @@ run started by either package resumes in the other. A scanned config
 JAX's scanned layout at every save, and unstacked at restore
 (``common/interop.py``).
 
+A factored second moment of a scanned config stays in JAX's scanned
+layout throughout (``optimizer.init_opt``'s ``period``): its factors
+of a stacked leaf span the layers, so it is neither stacked nor
+unstacked.
+
 With a ``mesh`` the state is sharded by ``distributed/sharding.py``'s
-specs (params and both moments) and each batch is laid out by
-``batch_spec``; every rank runs the loop on the same batches, and a
-save gathers the state whole (rank 0 writes).
+spec trees (params, ``m``, and ``v`` by ``opt_specs``, factored or not)
+and each batch is laid out by ``batch_spec``; every rank runs the loop
+on the same batches, and a save gathers the state whole (rank 0
+writes).
 """
 from __future__ import annotations
 
@@ -54,9 +60,9 @@ class Trainer:
     asks for another), or from the latest checkpoint in ``ckpt`` when
     there is one. ``data_it`` yields ``(tokens, labels)`` numpy or tensor
     pairs of shape (B, S). ``compute_dtype`` defaults to bf16 over f32
-    master params. ``mesh`` (a ``DeviceMesh``) shards the state by the
-    standard specs; ``batch_spec`` (default: the batch over the data
-    axes) lays out each batch."""
+    master params. ``mesh`` (a ``DeviceMesh``) shards the whole state by
+    the standard spec trees, a factored ``v`` included; ``batch_spec``
+    (default: the batch over the data axes) lays out each batch."""
 
     def __init__(self, cfg: ModelConfig, opt_cfg: OPT.OptConfig,
                  data_it: Iterator, ckpt: Optional[CheckpointManager] = None,
@@ -67,9 +73,6 @@ class Trainer:
                  device=None, mesh=None, batch_spec=None):
         self.device = resolve_device(device)
         self.mesh = mesh
-        if mesh is not None and opt_cfg.factored:
-            raise NotImplementedError("a factored second moment is not "
-                                      "sharded by the Trainer")
         self.cfg = cfg
         self.run_cfg = cfg.unrolled() if cfg.scan_layers else cfg
         self.opt_cfg = opt_cfg
@@ -85,8 +88,9 @@ class Trainer:
             compute_dtype=compute_dtype or torch.bfloat16, mesh=mesh,
             batch_spec=batch_spec, param_specs=specs)
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        period = len(cfg.pattern) if cfg.scan_layers else None
         self.state = self._on_mesh(init_train_state(gen, self.run_cfg,
-                                                    opt_cfg))
+                                                    opt_cfg, period=period))
         self.step = 0
         self.preemption = PreemptionHandler().install()
         self.straggler = StragglerMonitor()
@@ -98,21 +102,23 @@ class Trainer:
 
     def _to_layout(self, state: dict, blocks_fn) -> dict:
         """``state`` with ``blocks_fn`` applied to the blocks of the
-        params and of both moments."""
+        params and of both moments (not to a factored ``v``, which is in
+        the scanned layout already)."""
         opt = state["opt"]
+        v = opt["v"] if self.opt_cfg.factored else _with_blocks(
+            opt["v"], blocks_fn(opt["v"]["blocks"]))
         return {"params": _with_blocks(state["params"],
                                        blocks_fn(state["params"]["blocks"])),
                 "opt": {**opt,
                         "m": _with_blocks(opt["m"],
                                           blocks_fn(opt["m"]["blocks"])),
-                        "v": _with_blocks(opt["v"],
-                                          blocks_fn(opt["v"]["blocks"]))}}
+                        "v": v}}
 
     def _on_mesh(self, state: dict) -> dict:
         """``state`` sharded onto the mesh, if there is one."""
         if self.mesh is None:
             return state
-        return reshard_state(state, self.mesh, self.run_cfg)
+        return reshard_state(state, self.mesh, self.cfg)
 
     def _checkpoint_tree(self) -> dict:
         """The state in the on-disk layout: scanned configs stack the

@@ -1,9 +1,9 @@
 """The port's distribution layer against the JAX package, on the CPU.
 
 In-process: the spec functions (``param_specs``, ``cache_specs``,
-``input_sharding``, ``resolve_spec``, ``choose_mesh_shape``) equal the
-JAX package's as tuples for every registry id, scanned and unrolled, on
-five meshes (the JAX functions read only ``mesh.shape``, so they take a
+``input_sharding``, ``resolve_spec``, ``choose_mesh_shape``, and the
+dry-run's ``opt_specs``) equal the JAX package's as tuples for every
+registry id, scanned and unrolled, on five meshes (the JAX functions read only ``mesh.shape``, so they take a
 stub); ``launch/specs.py``'s meta structs equal JAX's ``eval_shape``
 structs; int8 compression is bitwise JAX's.
 
@@ -13,8 +13,9 @@ computes the JAX references and writes the inputs to an ``.npz``; a
 on 127.0.0.1, and prints one JSON line. Two worlds: 8 ranks (a 2x2x2
 ``pod`` x ``data`` x ``model`` mesh: the tuple-axis order, the
 compressed all-reduce, the sharded forward, decode and padded-heads
-forward, two sharded train steps, checkpoints both ways, the elastic
-mesh) and 4 ranks (the pipeline, then the train launcher on 2 of them).
+forward, every sharded gradient leaf, two sharded train steps,
+checkpoints both ways, the elastic mesh, and the Trainer with a
+factored second moment from a JAX checkpoint) and 4 ranks (the pipeline, then the train launcher on 2 of them).
 The dry-run cell runs alone after them, in a third subprocess; its flop
 count is checked in-process on a fake world of 4.
 """
@@ -46,6 +47,7 @@ from repro.models.specs import (AttentionSpec, LayerSpec, MambaSpec,
                                 MLPSpec, ModelConfig, MoESpec)
 from repro.serve.engine import make_serve_step as jax_make_serve_step
 from repro.train import optimizer as JOPT
+from repro.train.train_step import make_loss_fn as jax_make_loss_fn
 from repro.train.train_step import make_train_step as jax_make_train_step
 
 from tests.test_torch_gpu import KERNEL_OPS, check_op_refuses_dtensor
@@ -68,6 +70,7 @@ MESHES = [{"data": 16, "model": 16}, {"pod": 2, "data": 16, "model": 16},
 FWD_ATOL = 1e-4      # JAX's own bound for its sharded f32 forward
 PIPE_ATOL = 1e-6     # JAX's own bound for its pipeline
 STEP_RTOL = 1e-5     # two sharded AdamW steps, f32, per loss and leaf
+GRAD_RTOL = 1e-4     # tests/test_torch_train.py's bound for a gradient leaf
 # Adam's early steps divide each gradient element by its own magnitude,
 # so an element whose gradient is at the level of f32 summation-order
 # noise moves by a full lr either way; an eps well above that noise
@@ -194,7 +197,7 @@ def _gather_rows(x):
 
 def world8(rank, world, path):
     from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.common.tree import iter_paths
+    from repro_torch.common.tree import iter_paths, tree_get
     from repro_torch.distributed import axes as AX
     from repro_torch.distributed import sharding as SH
     from repro_torch.distributed.compression import compressed_all_reduce
@@ -204,7 +207,9 @@ def world8(rank, world, path):
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import make_serve_step
     from repro_torch.train import optimizer as OPT
-    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.train_step import (make_loss_fn, make_train_step,
+                                              value_and_grad)
+    from repro_torch.train.trainer import Trainer
     d = np.load(os.path.join(path, "in8.npz"))
     res, arrays = {}, {}
     f32 = torch.float32
@@ -258,11 +263,24 @@ def world8(rank, world, path):
     arrays["padded"] = lo.full_tensor()
 
     _lap(res, 'padded')
+    # the sharded gradient of every leaf, before the steps update sp
+    pspecs = SH.param_specs(mesh, run)
+    grad_fn = value_and_grad(make_loss_fn(run, f32, mesh=mesh,
+                                          param_specs=pspecs))
+    with AX.use_mesh(mesh):
+        (loss, _), grads = grad_fn(
+            sp, SH.shard_inputs(torch.from_numpy(d["train_tok"][0]), mesh),
+            SH.shard_inputs(torch.from_numpy(d["train_lab"][0]), mesh))
+    res["grad_loss"] = float(loss)
+    for p_, leaf in iter_paths(grads):
+        arrays["grad/" + "/".join(str(k) for k in p_)] = leaf.full_tensor()
+
+    _lap(res, 'grads')
     # two sharded AdamW steps, then a checkpoint of the sharded params
     ocfg = OPT.OptConfig(**json.loads(str(d["opt_cfg"])))
     state = {"params": sp, "opt": OPT.init_opt(sp, ocfg)}
     step = make_train_step(run, ocfg, compute_dtype=f32, mesh=mesh,
-                           param_specs=SH.param_specs(mesh, run))
+                           param_specs=pspecs)
     losses = []
     for i in range(2):
         state, m = step(state, torch.from_numpy(d["train_tok"][i]),
@@ -292,6 +310,55 @@ def world8(rank, world, path):
     res["elastic_bitwise"] = _all(ok)
     res["elastic_sharded_leaves"] = sharded
     _lap(res, 'elastic')
+    # the factored Trainer from a JAX checkpoint (scanned layout)
+    focfg = OPT.OptConfig(**json.loads(str(d["opt_cfg"])), factored=True)
+    tr = Trainer(cfg, focfg, iter(zip(d["train_tok"], d["train_lab"])),
+                 ckpt=CheckpointManager(os.path.join(path, "ckpt_factored")),
+                 compute_dtype=f32, prefetch=False, async_checkpoint=False,
+                 device="cpu", mesh=mesh)
+    try:
+        res["factored_start"] = tr.step
+        jax_params = _load(d, "hybrid/", SPEC.param_struct(cfg, f32))
+        jax_params["blocks"] = SH.unrolled_blocks(jax_params["blocks"], cfg)
+        res["factored_restored"] = _all(all(
+            torch.equal(leaf.full_tensor(), want)
+            for (_, leaf), (_, want) in zip(iter_paths(tr.state["params"]),
+                                            iter_paths(jax_params))))
+        res["factored_losses"] = tr.run(2).losses
+    finally:
+        tr.preemption.uninstall()
+    vspecs = SH.opt_specs(SH.param_specs(mesh, cfg),
+                          SPEC.param_struct(cfg), focfg)["v"]
+    placed, n_sharded = True, {"row": 0, "col": 0, "full": 0}
+    for p_, leaf in iter_paths(tr.state["opt"]["v"]):
+        pl = tuple(AX.spec_placements(mesh, tree_get(vspecs, p_)))
+        placed = placed and tuple(leaf.placements) == pl
+        n_sharded[p_[-1]] += any(x.is_shard() for x in leaf.placements)
+    res["factored_v_placed"] = _all(placed)
+    res["factored_v_sharded"] = n_sharded
+    for name in ("params", "m", "v"):
+        tree = tr.state[name] if name == "params" else tr.state["opt"][name]
+        for p_, leaf in iter_paths(tree):
+            arrays[f"factored/{name}/" + "/".join(str(k) for k in p_)] = \
+                leaf.full_tensor()
+    _lap(res, 'factored')
+    # an unrolled JAX factored state restored onto the mesh
+    ucfg = _cfg(d, "unrolled_cfg")
+    tr = Trainer(ucfg, focfg, iter(()),
+                 ckpt=CheckpointManager(os.path.join(path, "ckpt_unrolled")),
+                 compute_dtype=f32, prefetch=False, device="cpu", mesh=mesh)
+    tr.preemption.uninstall()
+    res["unrolled_start"] = tr.step
+    vspecs = SH.opt_specs(SH.param_specs(mesh, ucfg),
+                          SPEC.param_struct(ucfg), focfg)["v"]
+    res["unrolled_v_placed"] = _all(all(
+        tuple(leaf.placements) == tuple(AX.spec_placements(
+            mesh, tree_get(vspecs, p_)))
+        for p_, leaf in iter_paths(tr.state["opt"]["v"])))
+    for p_, leaf in iter_paths(tr.state):
+        arrays["restored/" + "/".join(str(k) for k in p_)] = \
+            AX.full(leaf)
+    _lap(res, 'unrolled')
     if rank == 0:
         np.savez(os.path.join(path, "out8.npz"),
                  **{k: v.numpy() for k, v in arrays.items()})
@@ -376,6 +443,20 @@ def _world8_inputs(path) -> dict:
              "elastic": JT.init_model(jax.random.PRNGKey(2), elastic)}
     JaxCheckpointManager(str(path / "ckpt_jax")).save(1, trees["elastic"],
                                                       blocking=True)
+    # the factored Trainer's starting state, in JAX's scanned layout
+    factored = JOPT.OptConfig(**TRAIN_OPT, factored=True)
+    JaxCheckpointManager(str(path / "ckpt_factored")).save(
+        0, {"params": trees["hybrid"],
+            "opt": JOPT.init_opt(trees["hybrid"], factored)},
+        blocking=True, extra_meta={"step": 0})
+    # an unrolled factored state whose moments are not zero
+    unrolled, fill = _hybrid(scan=False), np.random.default_rng(1)
+    params = JT.init_model(jax.random.PRNGKey(3), unrolled)
+    state = {"params": params, "opt": jax.tree.map(
+        lambda x: jnp.asarray(fill.random(x.shape), x.dtype),
+        JOPT.init_opt(params, factored))}
+    JaxCheckpointManager(str(path / "ckpt_unrolled")).save(
+        3, state, blocking=True, extra_meta={"step": 3})
     inputs = {
         "g1": rng.standard_normal((8, 64)).astype(np.float32),
         "g2": rng.standard_normal((8, 64)).astype(np.float32),
@@ -383,11 +464,13 @@ def _world8_inputs(path) -> dict:
         "train_tok": rng.integers(0, 256, (2, 8, 16), dtype=np.int32),
         "train_lab": rng.integers(0, 256, (2, 8, 16), dtype=np.int32),
         "hybrid_cfg": _cfg_json(hybrid), "padded_cfg": _cfg_json(padded),
-        "elastic_cfg": _cfg_json(elastic), "opt_cfg": json.dumps(TRAIN_OPT)}
+        "elastic_cfg": _cfg_json(elastic), "opt_cfg": json.dumps(TRAIN_OPT),
+        "unrolled_cfg": _cfg_json(unrolled)}
     for name, tree in trees.items():
         inputs.update({f"{name}/{_key(k)}": v for k, v in _flat(tree).items()})
     np.savez(path / "in8.npz", **inputs)
-    return {"inputs": inputs, "trees": trees, "cfgs": (hybrid, padded)}
+    return {"inputs": inputs, "trees": trees, "cfgs": (hybrid, padded),
+            "factored": factored, "unrolled_state": state}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -428,6 +511,31 @@ def test_param_cache_and_input_specs_equal_jax(arch):
                     TSH.cache_specs(mesh, tc, batch), (scan, mesh, batch)
                 assert tuple(P(JSH.batch_axes(_Mesh(mesh), batch), None)) \
                     == TSH.input_sharding(mesh, batch)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_opt_specs_equal_jax(arch, monkeypatch):
+    """``sharding.opt_specs`` (the Trainer's, ``reshard_state``'s and the
+    dry-run's one tree) equals the JAX dry-run's ``opt_specs``, factored
+    or not, scanned and unrolled."""
+    # the JAX dry-run module sets XLA_FLAGS when imported: keep it here
+    monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
+    from repro.launch import dryrun as JDR
+    from repro_torch.launch import dryrun as TDR
+    assert TDR.opt_specs is TSH.opt_specs
+    for scan in (True, False):
+        jc = jreg.get_config(arch).replace(scan_layers=scan)
+        tc = treg.get_config(arch).replace(scan_layers=scan)
+        jstruct, tstruct = JSPEC.param_struct(jc), TSPEC.param_struct(tc)
+        for mesh in MESHES:
+            jp = JSH.param_specs(_Mesh(mesh), jc)
+            tp = TSH.param_specs(mesh, tc)
+            for factored in (False, True):
+                want = JDR.opt_specs(jp, jstruct,
+                                     JOPT.OptConfig(factored=factored))
+                got = TSH.opt_specs(tp, tstruct,
+                                    TOPT.OptConfig(factored=factored))
+                assert _jspec(want) == got, (scan, mesh, factored)
 
 
 def test_resolve_spec_drops_what_does_not_divide():
@@ -635,10 +743,30 @@ def world8(runs):
         losses.append(float(m["loss"]))
     ref["losses"] = losses
     ref["trained"] = _flat(state["params"])
+    # the factored Trainer's two steps, from the state it restored
+    fcfg = w8["factored"]
+    state = {"params": hp, "opt": JOPT.init_opt(hp, fcfg)}
+    fstep = jax.jit(jax_make_train_step(hybrid, fcfg, compute_dtype=f32))
+    losses = []
+    for i in range(2):
+        state, m = fstep(state, jnp.asarray(train_tok[i]),
+                         jnp.asarray(train_lab[i]))
+        losses.append(float(m["loss"]))
+    ref["factored_losses"] = losses
+    ref["factored"] = {"params": _flat(state["params"]),
+                       "m": _flat(state["opt"]["m"]),
+                       "v": _flat(state["opt"]["v"])}
+    # every gradient leaf on the first training batch
+    (loss, _), grads = jax.jit(jax.value_and_grad(
+        jax_make_loss_fn(hybrid, f32), has_aux=True))(
+        hp, jnp.asarray(train_tok[0]), jnp.asarray(train_lab[0]))
+    ref["grad_loss"], ref["grads"] = float(loss), _flat(grads)
     res = runs["world8"].json()
     with np.load(path / "out8.npz") as f:
         out = {k: f[k] for k in f.files}
-    return {"res": res, "out": out, "ref": ref, "path": path}
+    return {"res": res, "out": out, "ref": ref, "path": path,
+            "ref_trees": {**w8["trees"],
+                          "unrolled_state": w8["unrolled_state"]}}
 
 
 def test_tuple_axis_splits_pod_major(world8):
@@ -677,25 +805,111 @@ def test_padded_heads_forward_matches_jax(world8):
                                rtol=0)
 
 
+def _unrolled(scanned: dict) -> dict:
+    """A JAX scanned tree's {path: array} keyed by the port's unrolled
+    paths (slot ``j``, period ``t`` -> layer ``t * P + j``)."""
+    n, P = _hybrid().n_periods, len(_hybrid().pattern)
+    out = {}
+    for path, arr in scanned.items():
+        if path[0] == "blocks":
+            for t in range(n):
+                out[("blocks", t * P + path[1]) + path[2:]] = arr[t]
+        else:
+            out[path] = arr
+    return out
+
+
+def _got(out: dict, prefix: str) -> dict:
+    """The rank program's arrays under ``prefix``, by path."""
+    return {tuple(int(p) if p.isdigit() else p
+                  for p in k[len(prefix):].split("/")): v
+            for k, v in out.items() if k.startswith(prefix)}
+
+
+def _rel_fro(got, want) -> float:
+    return float(np.linalg.norm(got - want)
+                 / max(np.linalg.norm(want), 1e-30))
+
+
 def test_sharded_train_steps_match_jax(world8):
     res, ref, out = world8["res"], world8["ref"], world8["out"]
     np.testing.assert_allclose(res["losses"], ref["losses"], rtol=STEP_RTOL,
                                atol=0)
-    n = _hybrid().n_periods
-    want = {}
-    for path, arr in ref["trained"].items():
-        if path[0] == "blocks":         # scanned slot -> unrolled layers
-            for t in range(n):
-                want[("blocks", t * 2 + path[1]) + path[2:]] = arr[t]
-        else:
-            want[path] = arr
-    got = {tuple(int(p) if p.isdigit() else p
-                 for p in k.split("/")[1:]): v
-           for k, v in out.items() if k.startswith("trained/")}
+    want = _unrolled(ref["trained"])
+    got = _got(out, "trained/")
     assert set(got) == set(want)
     for path, arr in want.items():
         err = np.linalg.norm(got[path] - arr) / np.linalg.norm(arr)
         assert err <= STEP_RTOL, (path, err)
+
+
+def test_sharded_gradients_match_jax_leaf_by_leaf(world8):
+    """Every gradient leaf of the sharded loss, gathered, within the
+    unsharded port's GRAD_RTOL of JAX's ``value_and_grad``: attention,
+    MLP, MoE and Mamba leaves."""
+    np.testing.assert_allclose(world8["res"]["grad_loss"],
+                               world8["ref"]["grad_loss"], rtol=STEP_RTOL,
+                               atol=0)
+    want = _unrolled(world8["ref"]["grads"])
+    got = _got(world8["out"], "grad/")
+    assert set(got) == set(want)
+    kinds = {k for path in got for k in ("attn", "mlp", "moe", "mamba")
+             if k in path}
+    assert kinds == {"attn", "mlp", "moe", "mamba"}
+    for path, arr in want.items():
+        assert got[path].shape == arr.shape, path
+        err = _rel_fro(got[path], arr)
+        assert err <= GRAD_RTOL, (path, err)
+
+
+def test_factored_trainer_on_mesh_matches_jax(world8):
+    """The Trainer with a factored second moment on the 2x2x2 mesh,
+    started from a JAX checkpoint: two steps within STEP_RTOL of JAX's
+    in loss and in every leaf of params, m and v (row, col, full), with
+    v laid out by the shared spec tree."""
+    res, ref, out = world8["res"], world8["ref"], world8["out"]
+    assert res["factored_start"] == 0 and res["factored_restored"]
+    np.testing.assert_allclose(res["factored_losses"],
+                               ref["factored_losses"], rtol=STEP_RTOL,
+                               atol=0)
+    wants = {"params": _unrolled(ref["factored"]["params"]),
+             "m": _unrolled(ref["factored"]["m"]),
+             "v": ref["factored"]["v"]}      # v keeps the scanned layout
+    for name, want in wants.items():
+        got = _got(out, f"factored/{name}/")
+        assert set(got) == set(want), name
+        for path, arr in want.items():
+            err = _rel_fro(got[path], arr)
+            assert err <= STEP_RTOL, (name, path, err)
+    assert {k for path in wants["v"] for k in path[-1:]} == \
+        {"row", "col", "full"}
+    assert res["factored_v_placed"]
+    assert res["factored_v_sharded"]["row"] > 0
+    assert res["factored_v_sharded"]["col"] > 0
+
+
+def test_factored_trainer_checkpoint_restores_bitwise_in_jax(world8):
+    """The factored Trainer's save (JAX's scanned layout) restores in
+    JAX bitwise equal to the state it gathered."""
+    hp = world8["ref_trees"]["hybrid"]
+    fcfg = JOPT.OptConfig(**TRAIN_OPT, factored=True)
+    like = {"params": hp, "opt": JOPT.init_opt(hp, fcfg)}
+    got = _flat(JaxCheckpointManager(str(world8["path"] / "ckpt_factored"))
+                .restore(like))
+    out = world8["out"]
+    n, P = _hybrid().n_periods, len(_hybrid().pattern)
+    assert int(got[("opt", "step")]) == 2
+    for path, arr in got.items():
+        if path == ("opt", "step"):
+            continue
+        name = path[0] if path[0] == "params" else path[1]
+        rest = path[1:] if path[0] == "params" else path[2:]
+        if name != "v" and rest[0] == "blocks":    # stack the layers
+            want = np.stack([out[f"factored/{name}/" + _key(
+                ("blocks", t * P + rest[1]) + rest[2:])] for t in range(n)])
+        else:
+            want = out[f"factored/{name}/" + _key(rest)]
+        np.testing.assert_array_equal(arr, want, err_msg=str(path))
 
 
 def test_sharded_checkpoint_restores_bitwise_in_jax(world8):
@@ -709,6 +923,20 @@ def test_sharded_checkpoint_restores_bitwise_in_jax(world8):
     for path, arr in got.items():
         np.testing.assert_array_equal(
             arr, trained["trained/" + _key(path[1:])])
+
+
+def test_jax_factored_checkpoint_restores_bitwise_onto_mesh(world8):
+    """An unrolled JAX state with a factored v (moments not zero)
+    restored by the Trainer onto the 2x2x2 mesh: every leaf bitwise,
+    v laid out by the shared spec tree."""
+    res = world8["res"]
+    assert res["unrolled_start"] == 3 and res["unrolled_v_placed"]
+    want = _flat(world8["ref_trees"]["unrolled_state"])
+    got = _got(world8["out"], "restored/")
+    assert set(got) == set(want)
+    assert any(path[-1] == "row" for path in got)
+    for path, arr in want.items():
+        np.testing.assert_array_equal(got[path], arr, err_msg=str(path))
 
 
 def test_jax_checkpoint_restores_bitwise_onto_elastic_mesh(world8):

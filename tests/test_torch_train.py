@@ -138,6 +138,58 @@ def test_apply_updates_matches_jax(factored, m_dtype):
         assert set(ps["v"]["b"]) == {"full"}
 
 
+def _stacked_case(seed: int, n: int = 3):
+    """JAX's scanned layout: two slots of ``n``-period stacks (a stack of
+    matrices, of vectors, of scalars, of 1-row matrices) beside an
+    unstacked matrix; per step, gradients of the same layout."""
+    rng = np.random.default_rng(seed)
+    shapes = {"e": (4, 8),
+              "blocks": ({"w": (n, 6, 10), "b": (n, 10)},
+                         {"s": (n, 5), "z": (n,), "one": (n, 1, 7)})}
+
+    def draw(scale):
+        return jax.tree_util.tree_map(
+            lambda sh: (rng.standard_normal(sh) * scale).astype(np.float32),
+            shapes, is_leaf=lambda x: isinstance(x, tuple)
+            and all(isinstance(d, int) for d in x))
+    return draw(1.0), [draw(s) for s in (3.0, 0.01, 1.0)]
+
+
+def _unrolled(tree, n):
+    """A JAX scanned numpy tree as the port's unrolled tensor tree."""
+    t = tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
+    return {**t, "blocks": [tree_map(lambda x: x.clone(), b)
+                            for b in unstack_blocks(t["blocks"], n)]}
+
+
+@pytest.mark.parametrize("m_dtype", ["float32", "bfloat16"])
+def test_scanned_factored_update_matches_jax(m_dtype):
+    """A scanned config's factored v (``init_opt(period=P)``) updated
+    from unrolled params and grads as JAX updates the stacked leaves: a
+    stack of vectors factors across the periods."""
+    n = 3
+    params, grads = _stacked_case(4, n)
+    cfg = dict(lr=0.05, warmup_steps=2, total_steps=10, weight_decay=0.1,
+               factored=True, m_dtype=m_dtype)
+    jcfg, pcfg = JOPT.OptConfig(**cfg), OPT.OptConfig(**cfg)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    js = JOPT.init_opt(jp, jcfg)
+    pp = _unrolled(params, n)
+    ps = OPT.init_opt(pp, pcfg, period=2)
+    assert set(ps["v"]["blocks"][1]["s"]) == {"row", "col"}
+    assert ps["v"]["blocks"][1]["s"]["row"].shape == (n,)
+    assert set(ps["v"]["blocks"][1]["one"]) == {"full"}
+    for g in grads:
+        jp, js, _ = JOPT.apply_updates(
+            jp, jax.tree_util.tree_map(jnp.asarray, g), js, jcfg)
+        pp, ps, _ = OPT.apply_updates(pp, _unrolled(g, n), ps, pcfg)
+    stack = lambda t: {**t, "blocks": stack_blocks(t["blocks"], 2)}  # noqa
+    for tree_p, tree_j in ((stack(pp), jp), (stack(ps["m"]), js["m"]),
+                           (ps["v"], js["v"])):
+        for key, got, want in _paired_leaves(tree_p, tree_j):
+            assert _rel_max(got, want) <= OPT_RTOL, key
+
+
 def test_schedule_matches_jax():
     cfg = dict(lr=3e-3, warmup_steps=10, total_steps=100, min_lr_frac=0.1)
     for step in (0, 5, 10, 55, 100, 130):
@@ -344,6 +396,54 @@ def test_port_checkpoint_continues_in_jax(scan):
         assert jt.step == 4
         jrep = jt.run(4)
     np.testing.assert_allclose(jrep.losses, prep.losses, rtol=STEP_RTOL,
+                               atol=0)
+
+
+@pytest.mark.parametrize("scan", [False, True])
+def test_factored_checkpoints_continue_both_ways(scan):
+    """A factored second moment (bf16 momentum, as the dry-run's
+    nemotron-4-340b train cell): a JAX checkpoint continues in the
+    port, and the port's in JAX, to the same losses; the scanned
+    layout's ``v`` factors a stack of vectors across the periods."""
+    jcfg = small_config(scan=scan, moe=True)
+    ocfg = dict(OCFG, factored=True)
+    corpus = SyntheticCorpus(256, seed=1)
+
+    def jax_trainer(d, start):
+        return JaxTrainer(jcfg, JOPT.OptConfig(**ocfg),
+                          corpus.batches(4, 16, start=start),
+                          ckpt=JaxCheckpointManager(d), ckpt_every=100,
+                          compute_dtype=jnp.float32, prefetch=False,
+                          async_checkpoint=False)
+
+    def port_trainer(d, start):
+        return Trainer(_port_cfg(jcfg), OPT.OptConfig(**ocfg),
+                       corpus.batches(4, 16, start=start),
+                       ckpt=CheckpointManager(d), ckpt_every=100,
+                       compute_dtype=torch.float32, prefetch=False,
+                       device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        a, b, c = (os.path.join(d, k) for k in ("jax", "port", "back"))
+        jt = jax_trainer(a, 0)
+        jt.run(3)
+        shutil.copytree(a, b)
+        jrep = jt.run(3)
+        pt = port_trainer(b, 3)
+        assert pt.step == 3
+        prep = pt.run(3)
+        np.testing.assert_allclose(prep.losses, jrep.losses, rtol=STEP_RTOL,
+                                   atol=0)
+        shutil.copytree(b, c)
+        with np.load(os.path.join(c, "step_00000006", "arrays.npz")) as z:
+            if scan:   # JAX's scanned layout: (n_periods,) rows
+                assert z["opt/v/blocks/0/norm1/scale/row"].shape == (2,)
+                assert z["opt/v/blocks/0/norm1/scale/col"].shape == (64,)
+            else:
+                assert set(z["opt/v/blocks/0/norm1/scale/full"].shape) == \
+                    {64}
+        jrep2 = jt.run(2)
+        prep2 = jax_trainer(c, 6).run(2)
+    np.testing.assert_allclose(prep2.losses, jrep2.losses, rtol=STEP_RTOL,
                                atol=0)
 
 
