@@ -14,6 +14,10 @@ JAX package.
 and SSD paths the reference trains on (the kernels have no backward),
 each block under activation checkpointing when ``cfg.remat`` is set.
 
+With the span log on (``common/spans.py``) the forward records an
+``embed`` span, a ``block`` span per layer (``apply_block`` an ``attn``
+or ``mamba`` span inside it) and a ``head`` span: host time only.
+
 Under an active mesh (``distributed/axes.py::use_mesh``) params, tokens
 and caches are DTensors (``distributed/sharding.py``) and the JAX
 package's hints lay the residual stream out as it does: the batch over
@@ -26,6 +30,7 @@ from typing import Any, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common.spans import LOG as SPANS
 from repro_torch.common.tree import cast_tree
 from repro_torch.distributed import axes as AX
 from repro_torch.distributed.axes import hint
@@ -192,8 +197,9 @@ def apply_block(block_params: dict, cfg: ModelConfig, spec: LayerSpec,
     (the serving block-sparse path; it drops the MoE aux loss).
     ``train``: the mixers' plain paths (see ``forward``)."""
     _check_ported(spec)
-    h = L.apply_norm(block_params["norm1"], cfg.norm, x)
     kind = "attn" if isinstance(spec.mixer, AttentionSpec) else "mamba"
+    k = SPANS.open(kind) if SPANS.on else -1
+    h = L.apply_norm(block_params["norm1"], cfg.norm, x)
     if kind == "attn":
         mix, nc = L.apply_attention(
             block_params["attn"], spec.mixer, h, positions,
@@ -206,6 +212,8 @@ def apply_block(block_params: dict, cfg: ModelConfig, spec: LayerSpec,
                                   else None, train=train)
     new_cache = {kind: nc} if nc is not None else {}
     x = x + mix
+    if k >= 0:
+        SPANS.close(k)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn is not None:
         h = L.apply_norm(block_params["norm2"], cfg.norm, x)
@@ -254,6 +262,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     _check_unrolled(cfg)
     B, S = tokens.shape
     dev = tokens.device
+    k = SPANS.open("embed") if SPANS.on else -1
     if positions is None:
         ar = torch.arange(S, device=dev)[None, :]
         if cache_index is not None:
@@ -271,11 +280,14 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if frontend_embeds is not None:
         F = frontend_embeds.shape[1]
         x = torch.cat([frontend_embeds.to(compute_dtype), x[:, F:]], dim=1)
+    if k >= 0:
+        SPANS.close(k)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     x = hint(x, "batch", "residual_seq", "embed")
     new_cache = [] if cache is not None else None
     for i in range(cfg.n_layers):
+        k = SPANS.open("block", layer=i) if SPANS.on else -1
         ci = cache[i] if cache is not None else None
         args = (params["blocks"][i], cfg, cfg.layer(i), x, positions, ci,
                 cache_index)
@@ -290,7 +302,10 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         aux_total = aux_total + a
         if cache is not None:
             new_cache.append(nci)
+        if k >= 0:
+            SPANS.close(k)
 
+    k = SPANS.open("head") if SPANS.on else -1
     x = L.apply_norm(params["final_norm"], cfg.norm, x)
     if cfg.tie_embeddings:
         head = params["embed"]["table"].to(compute_dtype).T
@@ -302,6 +317,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     logits = AX.on_shards(lambda x, w: x @ w, {0: rows, 1: (None, "vocab")},
                           (rows[:2] + ("vocab",), x.shape[:2] + head.shape[1:]),
                           x, head)
+    if k >= 0:
+        SPANS.close(k)
     return logits, new_cache, aux_total
 
 

@@ -38,6 +38,10 @@ from a thread-safe submission queue and emits per-token events; the
 streaming gateway (``repro_torch.serve.gateway``) runs it in a
 background thread. Both run the same admission, prefill and decode
 code, so the gateway's tokens are those of driving the engine directly.
+
+With the span log on (``serve/metrics.py::SPANS``) each decode burst,
+tick, prefill chunk and paged admission and copy-on-write pass records
+its host interval (``common/spans.py``).
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.common.spans import LOG as SPANS
 from repro_torch.common.tree import tree_device
 from repro_torch.models import transformer as T
 from repro_torch.models.specs import AttentionSpec, ModelConfig
@@ -245,12 +250,16 @@ class ContinuousEngine:
 
     def _sample_first(self, logits_row, slot, state) -> int:
         """Sample the request's first token (stream count 0) from its
-        prefill logits."""
+        prefill logits (its one sync)."""
+        k = SPANS.open("sample_first") if SPANS.on else -1
         i = slot.index
-        return int(sample_tokens(
+        tok = int(sample_tokens(
             logits_row[None], self._tensor(state["keys"][i:i + 1]),
             torch.zeros((1,), dtype=torch.int64, device=self.device),
             state["temps"][i:i + 1], self.cfg.vocab)[0])
+        if k >= 0:
+            SPANS.close(k)
+        return tok
 
     # ----------------------------------------------------------- prefill
 
@@ -259,13 +268,22 @@ class ContinuousEngine:
         (pool, first_token)."""
         prompt = np.asarray(slot.request.prompt, np.int64)
         s0 = len(prompt)
+        kc = (SPANS.open("prefill_chunk", uid=slot.request.uid, start=0,
+                         n=s0) if SPANS.on else -1)
+        kp = SPANS.open("chunk.prep") if SPANS.on else -1
         padded = np.zeros((1, self._bucket(s0)), np.int64)
         padded[0, :s0] = prompt
         row = T.init_cache(self.cfg, 1, self.max_seq, self.cache_dtype,
                            self.device)
-        logits, row = self._prefill(self.params, self._tensor(padded), row)
+        tokens = self._tensor(padded)
+        if kp >= 0:
+            SPANS.close(kp)
+        logits, row = self._prefill(self.params, tokens, row)
         pool = T.write_cache_slot(pool, row, slot.index)
-        return pool, self._sample_first(logits[0, s0 - 1, :], slot, state)
+        tok = self._sample_first(logits[0, s0 - 1, :], slot, state)
+        if kc >= 0:
+            SPANS.close(kc)
+        return pool, tok
 
     def _prefill_chunk(self, pool, slot, tables, state):
         """Paged pool: feed the next chunk of the request's prompt in;
@@ -276,16 +294,23 @@ class ContinuousEngine:
         chunk = self.serve.prefill_chunk or (s0 - start)
         end = min(start + chunk, s0)
         n = end - start
+        kc = (SPANS.open("prefill_chunk", uid=slot.request.uid, start=start,
+                         n=n) if SPANS.on else -1)
+        kp = SPANS.open("chunk.prep") if SPANS.on else -1
         padded = np.zeros((1, self._bucket(n)), np.int64)
         padded[0, :n] = prompt[start:end]
-        logits, pool = self._prefill(
-            self.params, pool, self._tensor(padded),
-            self._tensor(tables[slot.index:slot.index + 1]),
-            self._tensor([start]), self._tensor([n]))
+        args = (self._tensor(padded),
+                self._tensor(tables[slot.index:slot.index + 1]),
+                self._tensor([start]), self._tensor([n]))
+        if kp >= 0:
+            SPANS.close(kp)
+        logits, pool = self._prefill(self.params, pool, *args)
         slot.prefilled = end
-        if end < s0:
-            return pool, None
-        return pool, self._sample_first(logits[0, n - 1, :], slot, state)
+        tok = (None if end < s0 else
+               self._sample_first(logits[0, n - 1, :], slot, state))
+        if kc >= 0:
+            SPANS.close(kc)
+        return pool, tok
 
     # -------------------------------------------------------------- run
 
@@ -382,6 +407,15 @@ class ContinuousEngine:
         if not active:
             return None
         t_burst = time.perf_counter()
+        remaining = min(
+            min(s.request.max_new_tokens - len(s.generated),
+                self.max_seq - s.length) for s in active)
+        burst = max(1, min(max_burst, remaining))
+        if max_ticks is not None:
+            burst = min(burst, max_ticks - tick_state["ticks"])
+        kb = (SPANS.open("decode_burst", rows=len(active), ticks=burst,
+                         slots=self.max_slots) if SPANS.on else -1)
+        kp = SPANS.open("burst.prep") if SPANS.on else -1
         tokens_in = np.zeros((self.max_slots, 1), np.int64)
         lengths = np.zeros((self.max_slots,), np.int64)
         counts = np.zeros((self.max_slots,), np.int64)
@@ -389,28 +423,34 @@ class ContinuousEngine:
             tokens_in[s.index, 0] = s.last_token
             lengths[s.index] = s.length
             counts[s.index] = len(s.generated)
-        remaining = min(
-            min(s.request.max_new_tokens - len(s.generated),
-                self.max_seq - s.length) for s in active)
-        burst = max(1, min(max_burst, remaining))
-        if max_ticks is not None:
-            burst = min(burst, max_ticks - tick_state["ticks"])
         extra = (self._tensor(tables),) if tables is not None else ()
         toks_dev = self._tensor(tokens_in)
         lens_dev = self._tensor(lengths)
         counts_dev = self._tensor(counts)
         keys_dev = self._tensor(state["keys"])
+        if kp >= 0:
+            SPANS.close(kp)
         steps = []
         for _ in range(burst):
+            kt = SPANS.open("tick") if SPANS.on else -1
             logits, pool = self._decode(self.params, pool, toks_dev,
                                         lens_dev, *extra)
+            ks = SPANS.open("sample") if SPANS.on else -1
             sampled = sample_tokens(logits, keys_dev, counts_dev,
                                     state["temps"], self.cfg.vocab)
+            if ks >= 0:
+                SPANS.close(ks)
             steps.append(sampled)
             toks_dev = sampled[:, None]
             lens_dev = lens_dev + 1
             counts_dev = counts_dev + 1
+            if kt >= 0:
+                SPANS.close(kt)
+        ks = SPANS.open("burst.sync") if SPANS.on else -1
         host = torch.stack(steps).cpu().numpy()     # one sync per burst
+        if ks >= 0:
+            SPANS.close(ks)
+        kc = SPANS.open("burst.commit") if SPANS.on else -1
         for k in range(burst):
             sched.decoded({s.index: host[k, s.index] for s in active},
                           tick_state["clock"]())
@@ -425,6 +465,10 @@ class ContinuousEngine:
             m.gauge("tick.tokens_per_s", burst * len(active) / burst_s)
         m.count("decode.ticks", burst)
         m.count("decode.tokens", burst * len(active))
+        if kc >= 0:
+            SPANS.close(kc)
+        if kb >= 0:
+            SPANS.close(kb)
         return pool
 
     def _stats(self, sched, tick_state, wall, prefills, chunks):
@@ -558,6 +602,7 @@ class ContinuousEngine:
                 break
 
             # ---- admissions: map shared prefix blocks + claim the rest
+            ka = SPANS.open("admit") if SPANS.on else -1
             admitted = sched.admissions(clock(), can_admit)
             if (not admitted and not sched.slots and not sched.prefilling
                     and sched.head(clock()) is not None):
@@ -572,6 +617,8 @@ class ContinuousEngine:
                         and not can_admit(head)):
                     sched.reject(sched.pop_head(), "insufficient_blocks",
                                  clock())
+                    if ka >= 0:
+                        SPANS.close(ka)
                     continue
             for slot in admitted:
                 req = slot.request
@@ -595,6 +642,8 @@ class ContinuousEngine:
             pending.clear()
             tick_state["peak"] = max(tick_state["peak"],
                                      sched.concurrency())
+            if ka >= 0:
+                SPANS.close(ka)
 
             # ---- chunked prefill: one chunk per prefilling slot per
             # tick, interleaved with the decode burst below; the policy
@@ -618,6 +667,7 @@ class ContinuousEngine:
             # a block another sequence can still read. The private copy
             # comes out of the slot's admission-time reserve, never a
             # fresh alloc — a full arena here must not raise OutOfBlocks
+            kw = SPANS.open("cow_guard") if SPANS.on else -1
             active = sched.active()
             for s in active:
                 j = s.length // bs
@@ -640,6 +690,8 @@ class ContinuousEngine:
                     # fire for this slot again — return the reserve
                     alloc.release([reserve])
                     slot_reserve.pop(s.index, None)
+            if kw >= 0:
+                SPANS.close(kw)
 
             # the decode step runs over *every* slot row; slots still
             # mid-chunked-prefill must not have their real blocks

@@ -11,12 +11,21 @@ timers are the model).
 
 Pure host-side numpy, ported line for line from
 ``repro/serve/metrics.py`` — recording must never touch the device.
+
+Beside the registry sits the port's span log (``common/spans.py``,
+re-exported here as :data:`SPANS`): host intervals at each layer
+boundary of the serving path (decode burst, tick, block, attention,
+FFN, prefill chunk), off by default; a caller enables it, serves, and
+drains the records (the module docstring there says how).
 """
 from __future__ import annotations
 
 from typing import Iterable, Optional
 
 import numpy as np
+
+from repro_torch.common.spans import LOG as SPANS  # noqa: F401
+from repro_torch.common.spans import SpanLog  # noqa: F401
 
 # the canonical per-request stage series, milliseconds (recorded by the
 # engine for every Finished request; names are part of the wire schema)

@@ -41,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.common.spans import LOG as SPANS
 from repro_torch.common.tree import tree_get, tree_set
 from repro_torch.core.quant import quantize_tiles
 from repro_torch.core.registry import projections
@@ -533,12 +534,17 @@ def sparse_apply_ffn(block_params: dict, spec, x: torch.Tensor,
     ``quant`` picks the weight storage the kernels stream: None follows
     each plan's own flag, "int8" requires kept-tile storage, "none"
     forces the dense-weight (dequantised reference) path."""
+    k = SPANS.open("ffn") if SPANS.on else -1
     if isinstance(spec, MoESpec):
-        return sparse_apply_moe(block_params, spec, x, packed, layer,
-                                group_experts=group_experts,
-                                ragged_moe=ragged_moe, quant=quant)
-    return sparse_apply_mlp(block_params, spec, x, packed, layer,
-                            quant=quant)
+        y = sparse_apply_moe(block_params, spec, x, packed, layer,
+                             group_experts=group_experts,
+                             ragged_moe=ragged_moe, quant=quant)
+    else:
+        y = sparse_apply_mlp(block_params, spec, x, packed, layer,
+                             quant=quant)
+    if k >= 0:
+        SPANS.close(k)
+    return y
 
 
 def flop_savings(packed: dict) -> float:
