@@ -70,7 +70,11 @@ Phases, each printing one line of its own:
                 kernel 4 at S 3072 at the pruned llama's, gemma-2b's and
                 nemotron-4-340b's heads, with its host time a call and
                 its first design's time; both attention kernels also in
-                the Frobenius norm of the error;
+                the Frobenius norm of the error; the paged step's
+                prologue (``rope_kv_write``) at the phi3 cells' heads, a
+                64-row decode step and a padded 512-token chunk, f32 and
+                bf16, RoPE on and off, bitwise to its plain version, with
+                its plain version's device and host time a call;
    bf16 prefill — one 3072-token prompt, batch 1, through the static
                 ``Engine`` in bf16 (compute and cache) on the pruned
                 llama3-8b: one kernel-4 launch a layer, finite logits,
@@ -398,6 +402,12 @@ PREFIX_UIDS = (1, 9, 10, 11)       # the later three admit after the first
 PROMPT_RANGE = (17, 300)
 NEW_RANGE = (16, 48)
 MAX_SLOTS, MAX_SEQ, BLOCK_SIZE, PREFILL_CHUNK = 8, 3584, 16, 128
+# the paged step's prologue at the phi3 cells' pruned heads (n_q, n_kv,
+# D) and table entries a row (2048 positions of 16-token blocks): a
+# decode tick's 64 rows, and one 512-token chunk from position 700 with
+# 300 valid
+ROPE_KV_HEADS, ROPE_KV_TABLE = (30, 10, 128), 128
+ROPE_KV_SHAPES = (("decode", 64, 1), ("chunk", 1, 512))
 PAGED_TRACE_PROMPT = 256           # the paged trace's 8 prompts
 # the MoE phase: qwen3-moe-30b-a3b's 48 layers cut to 4, its own recipe
 MOE_ARCH, MOE_N_PERIODS, MOE_RECIPE = "qwen3-moe-30b-a3b", 4, "moe-smoke.json"
@@ -1433,6 +1443,8 @@ def phase_continuous(main: dict, device) -> dict:
             want = {"block_sparse": ffn_packed * forwards}
             if r["label"] == "contiguous":
                 want["flash_attention"] = n_layers * 1   # one long prompt
+            if r["label"] != "contiguous":     # RoPE + K/V write a layer
+                want["rope_kv_write"] = n_layers * forwards
             if r["label"] == "paged-kernel":
                 want["paged_attention"] = n_layers * r["ticks"]
             r["expected_launches"] = want
@@ -1780,7 +1792,92 @@ def phase_kernels(main: dict, device) -> tuple:
                 for K, N in ((4096, 14336), (14336, 4096), (4096, 1024))]
     for case in wm_cases:
         log("kernels", kernel="wanda_partials", **case)
-    return bs_cases, wm_cases
+
+    rkv_cases = [_rope_kv_write_case(label, B, S, rope, dtype, gen, device)
+                 for label, B, S in ROPE_KV_SHAPES
+                 for dtype in (torch.float32, torch.bfloat16)
+                 for rope in (True, False)]
+    for case in rkv_cases:
+        log("kernels", kernel="rope_kv_write", **case)
+    return bs_cases, wm_cases, rkv_cases
+
+
+def _rope_kv_write_case(label: str, B: int, S: int, rope: bool, dtype, gen,
+                        device) -> dict:
+    """The paged step's prologue at ``ROPE_KV_HEADS``: B rows of S tokens
+    over ``ROPE_KV_TABLE``-entry tables of BLOCK_SIZE blocks, q/k/v and
+    the arenas in ``dtype``, on the step tables ``layers.paged_step``
+    builds. The kernel against its plain version on the same inputs: q
+    and the arenas bitwise, the scratch block aside (a chunk's padded
+    positions all write its last row, in any order)."""
+    import torch
+    from repro_torch.kernels.rope_kv_write import kernel, ref
+    from repro_torch.models.layers import paged_step
+    from repro_torch.models.specs import AttentionSpec
+    n_q, n_kv, D = ROPE_KV_HEADS
+    bs, n_blocks = BLOCK_SIZE, B * ROPE_KV_TABLE
+    spec = AttentionSpec(n_q=n_q, n_kv=n_kv, head_dim=D, rope=rope)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    q, k, v = randn(B, S, n_q, D), randn(B, S, n_kv, D), randn(B, S, n_kv, D)
+    ka, va = randn(n_blocks + 1, bs, n_kv, D), randn(n_blocks + 1, bs, n_kv,
+                                                     D)
+    tables = torch.randperm(n_blocks, generator=gen, device=device).to(
+        torch.int32).reshape(B, ROPE_KV_TABLE)
+    if S == 1:
+        start = torch.randint(0, ROPE_KV_TABLE * bs, (B,), generator=gen,
+                              device=device)
+        n_valid = None
+    else:
+        start = torch.full((B,), 700, device=device)
+        n_valid = torch.full((B,), 300, device=device)
+    positions = start[:, None] + torch.arange(S, device=device)[None, :]
+    step = paged_step([spec], positions, ka, tables, start, n_valid)
+    cos, sin = (step.rope[(spec.rope_theta, D // 2)] if rope
+                else (None, None))
+    got = [t.clone() for t in (q, ka, va)]
+    plain = [t.clone() for t in (q, ka, va)]
+    kernel.rope_kv_write(got[0], k, v, got[1], got[2], step.rows, cos, sin)
+    ref.rope_kv_write_ref(plain[0], k, v, plain[1], plain[2], step.rows,
+                          cos, sin)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    for name, g, p in zip(("q", "k_arena", "v_arena"), got, plain):
+        if name != "q":
+            g, p = g[:-1], p[:-1]
+        if not torch.equal(g, p):
+            raise AssertionError(
+                f"rope_kv_write {label} {dname} rope={rope}: {name} differs "
+                f"from the plain version by "
+                f"{float((g.float() - p.float()).abs().max())}")
+    n_tok, s = B * S, q.element_size()
+    n_bytes = (4 * n_tok * n_kv * D * s + 8 * n_tok  # k, v in; arenas; rows
+               + (2 * n_tok * n_q * D * s + 2 * n_tok * (D // 2) * 4 if rope
+                  else 0))                           # q in and out; cos, sin
+    n_ops = 6.0 * n_tok * (n_q + n_kv) * (D // 2) if rope else 0.0
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")   # f32 arithmetic
+
+    def run():
+        kernel.rope_kv_write(got[0], k, v, got[1], got[2], step.rows, cos,
+                             sin)
+
+    def run_plain():
+        ref.rope_kv_write_ref(plain[0], k, v, plain[1], plain[2], step.rows,
+                              cos, sin)
+    rec = {
+        "case": label, "B": B, "S": S,
+        "n_valid": None if n_valid is None else int(n_valid[0]),
+        "n_q": n_q, "n_kv": n_kv, "D": D, "block": bs,
+        "table_entries": ROPE_KV_TABLE, "rope": rope, "dtype": dname,
+        "arena_dtype": dname, "bitwise": True, "max_abs_err": 0.0,
+        "ms": time_ms(run), "host_us": host_us(run),
+        "plain_ms": time_ms(run_plain), "plain_host_us": host_us(run_plain),
+        "library_ms": None,
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    _rates(rec, n_bytes, n_ops)
+    return rec
 
 
 def wanda_case(K: int, N: int, gen, device) -> dict:
@@ -2305,7 +2402,8 @@ def phase_moe(device, gpu: str) -> dict:
         continuous_config(block_size=BLOCK_SIZE, paged_kernel=True))
     want = {"grouped_block_sparse": 3 * L * run["prefill_chunks"],
             "grouped_block_sparse_ragged": 3 * L * run["ticks"],
-            "paged_attention": L * run["ticks"]}
+            "paged_attention": L * run["ticks"],
+            "rope_kv_write": L * (run["prefill_chunks"] + run["ticks"])}
     got = {k: v for k, v in run["launches"].items()
            if not k.endswith("_experts_computed")}
     if got != want or ref_run["launches"]:
@@ -2991,7 +3089,8 @@ def phase_moe_quant(device, gpu: str) -> dict:
                           quant="none"))
     want = {"grouped_block_sparse_quant": 3 * L * run["prefill_chunks"],
             "grouped_block_sparse_ragged_quant": 3 * L * run["ticks"],
-            "paged_attention": L * run["ticks"]}
+            "paged_attention": L * run["ticks"],
+            "rope_kv_write": L * (run["prefill_chunks"] + run["ticks"])}
     got = {k: v for k, v in run["launches"].items()
            if not k.endswith("_experts_computed")}
     if got != want:
@@ -4319,7 +4418,8 @@ def phase_gateway(main: dict, device) -> dict:
     st = gw["stats"]
     want = {"block_sparse": ffn_packed * (st["prefill_chunks"]
                                           + st["ticks"]),
-            "paged_attention": L * st["ticks"]}
+            "paged_attention": L * st["ticks"],
+            "rope_kv_write": L * (st["prefill_chunks"] + st["ticks"])}
     expect_launches("gateway", gw["launches"], want)
     run_ttft = {}
     for u, f in direct.items():
@@ -4498,6 +4598,7 @@ def arch_continuous(art, device, dense_too: bool) -> dict:
             want["flash_attention"] = L            # the one long prompt
         else:
             want["paged_attention"] = L * r["ticks"]
+            want["rope_kv_write"] = L * (r["prefill_chunks"] + r["ticks"])
         expect_launches(f"{art.cfg.name} {label}", r["launches"], want)
         r["expected_launches"] = want
         runs.append(r)
@@ -4718,7 +4819,8 @@ def phase_arch(arch: str, layers: int, device, gpu: str,
             continuous_config(block_size=BLOCK_SIZE, paged_kernel=True))
         want = {"grouped_block_sparse": 3 * L * run["prefill_chunks"],
                 "grouped_block_sparse_ragged": 3 * L * run["ticks"],
-                "paged_attention": L * run["ticks"]}
+                "paged_attention": L * run["ticks"],
+                "rope_kv_write": L * (run["prefill_chunks"] + run["ticks"])}
         expect_launches(f"{arch} paged-kernel", run["launches"], want)
         if ref_run["launches"]:
             raise AssertionError(f"{arch} dense run launched "
@@ -4783,7 +4885,8 @@ def kernel_table(main: dict, cont: dict, moe: dict, quant: dict,
     flash attention on the 3072-token prompt, the grouped kernels (6, 8)
     at an MoE prefill and the ragged kernels (7, 9) at an MoE decode tick
     (layer 0's gate stack), the SSD scan (10) at layer 0 of mamba2's
-    4096-token prefill. The MoE kernels' launches are the default static
+    4096-token prefill, the paged step's prologue at the phi3 cells'
+    64-row decode step with RoPE. The MoE kernels' launches are the default static
     runs'; kernel 5's the int8 llama run's; kernel 10's the mamba2 static
     run's."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -4806,6 +4909,8 @@ def kernel_table(main: dict, cont: dict, moe: dict, quant: dict,
     q_launches = quant["static"]["int8"]["launches"]
     mq_launches = moe_quant["static"]["int8"]["launches"]
     ssd = next(c for c in ssm["cases"] if c["dtype"] == "float32")
+    rkv = next(c for c in cases["rope_kv_write"] if c["dtype"] == "float32"
+               and c["case"] == "decode" and c["rope"])
     runs = {r["label"]: r["launches"] for r in cont["runs"]}
     return {"kernels": [
         {"name": "block_sparse_matmul", "route": "cuda",
@@ -4858,6 +4963,11 @@ def kernel_table(main: dict, cont: dict, moe: dict, quant: dict,
          "replaces": SSD_TPU,
          "launches": ssm["static"]["sparse"]["launches"].get("ssd_scan", 0),
          **{k: ssd[k] for k in keys}},
+        {"name": "rope_kv_write", "route": "cuda",
+         "source": "src/repro_torch/csrc/rope_kv_write.cu",
+         "replaces": None,
+         "launches": runs["paged-kernel"].get("rope_kv_write", 0),
+         **{k: rkv[k] for k in keys}},
     ]}
 
 
@@ -4880,7 +4990,7 @@ def main() -> int:
     gateway_info = phase_gateway(main_info, device)
     trace = phase_trace(main_info, device)
     t_kernels = time.perf_counter()
-    bs_cases, wm_cases = phase_kernels(main_info, device)
+    bs_cases, wm_cases, rkv_cases = phase_kernels(main_info, device)
     kernels_s = time.perf_counter() - t_kernels
     pa_cases, fa_cases, attention_s = phase_attention_kernels(
         main_info, cont_info, device)
@@ -4943,12 +5053,14 @@ def main() -> int:
                              "paged": pa_cases, "flash": fa_cases,
                              "grouped": gb_cases, "ragged": rg_cases,
                              "quant_grouped": qgb_cases,
-                             "quant_ragged": qrg_cases})
+                             "quant_ragged": qrg_cases,
+                             "rope_kv_write": rkv_cases})
 
     record = {"device": dev_info, "build": build_info,
               "main": main_info, "prune_side": prune_side_info,
               "continuous": cont_info, "trace": trace,
               "block_sparse_cases": bs_cases, "wanda_cases": wm_cases,
+              "rope_kv_write_cases": rkv_cases,
               "paged_attention_cases": pa_cases,
               "flash_attention_cases": fa_cases,
               "bf16_prefill": bf16_info,

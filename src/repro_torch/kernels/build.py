@@ -40,7 +40,8 @@ BUILD_DIR = _build_dir()
 # every CUDA source of the port: one library each, built in parallel by
 # ``chip_smoke.py``
 SOURCES = ("block_sparse.cu", "paged_attention.cu", "flash_attention.cu",
-           "grouped_block_sparse.cu", "ssd_scan.cu", "wanda_metric.cu")
+           "grouped_block_sparse.cu", "ssd_scan.cu", "wanda_metric.cu",
+           "rope_kv_write.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

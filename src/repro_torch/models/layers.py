@@ -7,11 +7,13 @@ the dtype a tensor already has is free), with norms, softmax and the
 attention scores in f32.
 
 Attention reads a contiguous KV cache, or a paged arena through
-per-sequence block tables (``paged_write`` / ``paged_gather``). Two
-branches launch kernels on CUDA tensors: paged decode with
+per-sequence block tables (``paged_step`` / ``paged_gather``). Three
+branches launch kernels on CUDA tensors: every paged step with no mesh
+(RoPE and the K/V write, ``kernels/rope_kv_write``, on tables the
+forward builds once, ``paged_step``), paged decode with
 ``paged_kernel`` (``kernels/paged_attention``) and causal prefill longer
 than ``DENSE_ATTN_MAX`` (``kernels/flash_attention``); on CPU tensors
-they run the plain versions, the latter the chunked path the JAX package
+they run the plain versions, the last the chunked path the JAX package
 runs. With ``train`` (set by ``transformer.loss_fn``) a long causal
 sequence takes that chunked path on any device: it is the path the
 reference trains on, and the kernels have no backward pass.
@@ -28,13 +30,16 @@ DTensor. With no mesh every hint is a no-op.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import axes as AX
 from repro_torch.distributed.axes import hint, hint_heads, model_axis_size
+from repro_torch.kernels.rope_kv_write.ops import rope_kv_write
+from repro_torch.kernels.rope_kv_write.ref import (rope_kv_write_ref,
+                                                   rope_rotate)
 from repro_torch.models.specs import AttentionSpec, MLPSpec
 from repro_torch.models.taps import tap
 
@@ -94,18 +99,20 @@ def rope_embed(x: torch.Tensor, positions: torch.Tensor,
                         x, positions)
 
 
-def _rope(x: torch.Tensor, positions: torch.Tensor,
-          theta: float) -> torch.Tensor:
-    half = x.shape[-1] // 2
+def rope_tables(positions: torch.Tensor, half: int,
+                theta: float) -> tuple:
+    """(cos, sin) of the rotary angles of ``positions`` (B, S): each (B,
+    S, half) f32."""
     freqs = torch.exp(-math.log(theta)
                       * torch.arange(half, dtype=torch.float32,
-                                     device=x.device) / half)
+                                     device=positions.device) / half)
     angles = positions[..., None].float() * freqs          # (B, S, half)
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x[..., :half], x[..., half:]
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor,
+          theta: float) -> torch.Tensor:
+    return rope_rotate(x, *rope_tables(positions, x.shape[-1] // 2, theta))
 
 
 # ---------------------------------------------------------------- attention
@@ -220,6 +227,21 @@ def _paged_rows(block_tables: torch.Tensor, pos: torch.Tensor,
     return phys * block_size + pos % block_size
 
 
+def _write_rows(block_tables: torch.Tensor, start: torch.Tensor, S: int,
+                n_valid: Optional[torch.Tensor], n_rows: int,
+                block_size: int) -> torch.Tensor:
+    """(B, S) arena rows of logical positions ``start[b] + [0, S)``, with
+    positions past ``n_valid[b]`` redirected to the arena's last row (in
+    the scratch block)."""
+    steps = torch.arange(S, device=start.device)
+    pos = start.long()[:, None] + steps[None, :]
+    rows = _paged_rows(block_tables, pos, block_size)
+    if n_valid is not None:
+        ok = steps[None, :] < n_valid.long()[:, None]
+        rows = torch.where(ok, rows, torch.full_like(rows, n_rows - 1))
+    return rows
+
+
 def paged_write(cache_kv: torch.Tensor, new: torch.Tensor,
                 block_tables: torch.Tensor, start: torch.Tensor,
                 n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -231,19 +253,55 @@ def paged_write(cache_kv: torch.Tensor, new: torch.Tensor,
     Rows past ``n_valid[b]`` (right-padded prefill positions) are
     redirected into the arena's last block — the scratch block the
     allocator never hands out — so padding never corrupts a live block.
+
+    A paged forward writes through ``rope_kv_write`` on the rows of
+    ``paged_step`` instead, which are this function's rows.
     """
     nb, bs = cache_kv.shape[0], cache_kv.shape[1]
     B, S = new.shape[0], new.shape[1]
     flat = cache_kv.view(nb * bs, *cache_kv.shape[2:])
-    steps = torch.arange(S, device=new.device)
-    pos = start.long()[:, None] + steps[None, :]
-    rows = _paged_rows(block_tables, pos, bs)
-    if n_valid is not None:
-        ok = steps[None, :] < n_valid.long()[:, None]
-        rows = torch.where(ok, rows, torch.full_like(rows, nb * bs - 1))
+    rows = _write_rows(block_tables, start, S, n_valid, nb * bs, bs)
     flat[rows.reshape(-1)] = new.to(flat.dtype).reshape(B * S,
                                                         *new.shape[2:])
     return cache_kv
+
+
+class PagedStep(NamedTuple):
+    """The tables every attention layer of one paged forward shares
+    (``paged_step``): they depend on the step's positions, block tables
+    and lengths, never on a layer's activations."""
+    rope: dict             # (rope_theta, D / 2) -> (cos, sin) (B, S, D / 2)
+    rows: torch.Tensor     # (B, S) int64 arena rows of the step's positions
+    lengths: torch.Tensor  # (B,) int32 valid KV positions after the step
+    tables: torch.Tensor   # the block tables in int32
+
+
+def paged_step(specs, positions: torch.Tensor, arena: torch.Tensor,
+               block_tables: torch.Tensor, cache_index,
+               n_valid: Optional[torch.Tensor] = None) -> PagedStep:
+    """Build once what each layer of a paged forward recomputed: cos and
+    sin of ``positions`` (B, S) for each distinct (``rope_theta``, head
+    width) among the attention ``specs`` that use RoPE, the arena rows
+    ``paged_write`` writes (logical positions ``cache_index + [0, S)``,
+    padding past ``n_valid`` into the scratch block) for ``arena``'s
+    shape, which every layer of a paged pool shares, and the valid
+    lengths, with the same ops, so the values are bitwise the per-layer
+    ones."""
+    B, S = positions.shape
+    ci = torch.as_tensor(cache_index, device=positions.device).long()
+    if ci.dim() == 0:
+        ci = ci.expand(B)
+    nb, bs = arena.shape[0], arena.shape[1]
+    rows = _write_rows(block_tables, ci, S, n_valid, nb * bs, bs)
+    nv = (n_valid.long() if n_valid is not None
+          else torch.full((B,), S, device=ci.device, dtype=torch.long))
+    rope = {}
+    for spec in specs:
+        key = (spec.rope_theta, spec.head_dim // 2)
+        if spec.rope and key not in rope:
+            rope[key] = rope_tables(positions, key[1], key[0])
+    return PagedStep(rope, rows, (ci + nv).to(torch.int32),
+                     block_tables.to(torch.int32))
 
 
 def paged_gather(cache_kv: torch.Tensor,
@@ -259,26 +317,35 @@ def paged_gather(cache_kv: torch.Tensor,
 
 
 def _paged_attention(spec: AttentionSpec, q, k, v, positions, cache: dict,
-                     cache_index, block_tables, n_valid, paged_kernel):
+                     cache_index, block_tables, n_valid, paged_kernel,
+                     step: Optional[PagedStep] = None):
     """The paged branch: scatter this step's K/V rows through the block
     tables, then attend over the gathered logical view, or, for a decode
     step with ``paged_kernel``, read the arena in place through the
     paged-attention op. The view width (max_blocks * block_size) is the
     contiguous pool's S_max, so the masked softmax sums equal the
     contiguous path's: rows of unwritten blocks get exact zero
-    probability (f32 exp(-1e30 - max) underflows to 0)."""
+    probability (f32 exp(-1e30 - max) underflows to 0).
+
+    With ``step`` (the forward's shared tables, no mesh) q and k arrive
+    unrotated: RoPE of both and the K/V write run as one
+    ``rope_kv_write`` op (one launch on CUDA). Without it (under a mesh)
+    they arrive rotated: the step's tables are built here, without RoPE,
+    and the op's plain version scatters k and v."""
     B, S = q.shape[0], q.shape[1]
-    ci = torch.as_tensor(cache_index, device=q.device).long()
-    if ci.dim() == 0:
-        ci = ci.expand(B)
-    ck = paged_write(cache["k"], k, block_tables, ci, n_valid)
-    cv = paged_write(cache["v"], v, block_tables, ci, n_valid)
-    nv = (n_valid.long() if n_valid is not None
-          else torch.full((B,), S, device=q.device, dtype=torch.long))
+    ck, cv = cache["k"], cache["v"]
+    if step is None:
+        step = paged_step((), positions, ck, block_tables, cache_index,
+                          n_valid)
+        rope_kv_write_ref(q, k, v, ck, cv, step.rows)
+    else:
+        rope = (step.rope[(spec.rope_theta, spec.head_dim // 2)]
+                if spec.rope else ())
+        q = rope_kv_write(q, k, v, ck, cv, step.rows, *rope)
     if paged_kernel and S == 1:
         from repro_torch.kernels.paged_attention.ops import (
             paged_attention_decode)
-        out = paged_attention_decode(q, ck, cv, block_tables, ci + nv)
+        out = paged_attention_decode(q, ck, cv, step.tables, step.lengths)
     else:
         kview = paged_gather(ck, block_tables)
         vview = paged_gather(cv, block_tables)
@@ -286,7 +353,7 @@ def _paged_attention(spec: AttentionSpec, q, k, v, positions, cache: dict,
         kv_pos = torch.arange(T_kv, device=q.device)[None, :].expand(B, T_kv)
         out = _dense_attention(q, kview, vview, positions, kv_pos,
                                causal=spec.causal,
-                               kv_valid=kv_pos < (ci + nv)[:, None])
+                               kv_valid=kv_pos < step.lengths[:, None])
     return out, {"k": ck, "v": cv}
 
 
@@ -383,7 +450,8 @@ def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
                     cache_index=None,
                     block_tables: Optional[torch.Tensor] = None,
                     n_valid: Optional[torch.Tensor] = None,
-                    paged_kernel: bool = False, train: bool = False):
+                    paged_kernel: bool = False, train: bool = False,
+                    step: Optional[PagedStep] = None):
     """Returns (out, new_cache). cache: {'k','v': (B, S_max, n_kv, D)};
     the step's K/V rows are written into it in place, at ``cache_index``
     (an int or 0-d tensor: the whole batch at one offset; a (B,) tensor:
@@ -394,7 +462,10 @@ def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
     {'k','v': (n_blocks, block_size, n_kv, D)}; ``n_valid`` (B,) masks
     right-padded positions of a padded (chunked) prefill, and
     ``paged_kernel`` sends decode steps (S == 1) through the
-    paged-attention op instead of the gather path. ``train`` sends a long
+    paged-attention op instead of the gather path. ``step``
+    (``paged_step``, given with ``block_tables`` when no mesh is active)
+    holds the forward's tables, shared by every layer: the paged branch
+    then runs RoPE and the K/V write as one op. ``train`` sends a long
     causal sequence without a cache through the plain chunked path."""
     dtype = x.dtype
     tap("attn_qkv", x)
@@ -405,7 +476,7 @@ def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
         q = q + params["q_bias"].to(dtype)
         k = k + params["k_bias"].to(dtype)
         v = v + params["v_bias"].to(dtype)
-    if spec.rope:
+    if spec.rope and step is None:
         q = rope_embed(q, positions, spec.rope_theta)
         k = rope_embed(k, positions, spec.rope_theta)
 
@@ -438,7 +509,7 @@ def apply_attention(params: dict, spec: AttentionSpec, x: torch.Tensor,
     if cache is not None and block_tables is not None:
         out, new_cache = _paged_attention(spec, q, k, v, positions, cache,
                                           cache_index, block_tables,
-                                          n_valid, paged_kernel)
+                                          n_valid, paged_kernel, step)
     elif cache is not None:
         ci = _cache_index(cache_index)
         ck, cv = cache["k"], cache["v"]

@@ -191,11 +191,13 @@ def apply_block(block_params: dict, cfg: ModelConfig, spec: LayerSpec,
                 x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[dict], cache_index, layer: int = 0,
                 mlp_apply=None, block_tables=None, n_valid=None,
-                paged_kernel: bool = False, train: bool = False):
+                paged_kernel: bool = False, train: bool = False,
+                step: Optional[L.PagedStep] = None):
     """Returns (x, new_cache, aux). ``mlp_apply(block_params, ffn_spec,
     h, layer)`` replaces the feed-forward, dense MLP or MoE, when given
     (the serving block-sparse path; it drops the MoE aux loss).
-    ``train``: the mixers' plain paths (see ``forward``)."""
+    ``train``: the mixers' plain paths (see ``forward``). ``step``: the
+    paged forward's shared tables (``layers.paged_step``)."""
     _check_ported(spec)
     kind = "attn" if isinstance(spec.mixer, AttentionSpec) else "mamba"
     k = SPANS.open(kind) if SPANS.on else -1
@@ -205,7 +207,7 @@ def apply_block(block_params: dict, cfg: ModelConfig, spec: LayerSpec,
             block_params["attn"], spec.mixer, h, positions,
             cache["attn"] if cache is not None else None, cache_index,
             block_tables=block_tables, n_valid=n_valid,
-            paged_kernel=paged_kernel, train=train)
+            paged_kernel=paged_kernel, train=train, step=step)
     else:
         mix, nc = SSM.apply_mamba(block_params["mamba"], spec.mixer, h,
                                   cache["mamba"] if cache is not None
@@ -250,7 +252,11 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     (``init_paged_pool``) read and written through each sequence's
     table row; ``n_valid`` (B,) masks right-padded prefill positions
     into the scratch block; ``paged_kernel`` sends paged decode steps
-    (S == 1) through the paged-attention op.
+    (S == 1) through the paged-attention op. With no mesh active the
+    tables every layer of a paged step shares (cos and sin of the
+    positions, the arena rows, the lengths) are built once, before the
+    layers (``layers.paged_step``), and each layer's RoPE and K/V write
+    run as one op on them.
     train: the differentiable route ``loss_fn`` takes, and the engines
     never do: attention over more than ``DENSE_ATTN_MAX`` causal
     positions runs the plain chunked path and Mamba layers the plain
@@ -283,6 +289,15 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if k >= 0:
         SPANS.close(k)
 
+    step = None
+    if (block_tables is not None and cache is not None
+            and AX.active_mesh() is None):
+        step = L.paged_step(
+            [spec.mixer for spec in map(cfg.layer, range(cfg.n_layers))
+             if isinstance(spec.mixer, AttentionSpec)],
+            positions, cache[0]["attn"]["k"], block_tables, cache_index,
+            n_valid)
+
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     x = hint(x, "batch", "residual_seq", "embed")
     new_cache = [] if cache is not None else None
@@ -292,7 +307,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         args = (params["blocks"][i], cfg, cfg.layer(i), x, positions, ci,
                 cache_index)
         kw = dict(layer=i, mlp_apply=mlp_apply, block_tables=block_tables,
-                  n_valid=n_valid, paged_kernel=paged_kernel, train=train)
+                  n_valid=n_valid, paged_kernel=paged_kernel, train=train,
+                  step=step)
         if train and cfg.remat:
             x, nci, a = checkpoint(apply_block, *args, use_reentrant=False,
                                    **kw)

@@ -24,16 +24,19 @@ from repro_torch.kernels.grouped_block_sparse import ref as gbs_ref
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as pa_ref
+from repro_torch.kernels.rope_kv_write import kernel as rkv_kernel
+from repro_torch.kernels.rope_kv_write import ops as rkv_ops
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.kernels.wanda_metric import kernel as wm_kernel
 from repro_torch.kernels.wanda_metric import ops as wm_ops
 from repro_torch.kernels.wanda_metric import ref as wm_ref
+from repro_torch.models import layers as L
 from repro_torch.models import moe
 from repro_torch.models import transformer as T
-from repro_torch.models.specs import (LayerSpec, MambaSpec, ModelConfig,
-                                      MoESpec)
+from repro_torch.models.specs import (AttentionSpec, LayerSpec, MambaSpec,
+                                      MLPSpec, ModelConfig, MoESpec)
 from repro_torch.serve import sparse as serve_sparse
 from repro_torch.serve.sparse import pack_projection, sparse_linear
 
@@ -476,6 +479,208 @@ def test_paged_attention_kernel_wide_heads(cuda, group, n_kv, D, dtype):
     plain = pa_ref.paged_attention_ref(q, k, v, tables, lens)
     live = lens > 0
     _attn_close(out[live], plain[live], dtype)
+
+
+# ------------------------------------------- the paged step's prologue
+
+def _rope_kv_case(device, chunk: bool, dtype, arena_dtype, n_q=30, n_kv=10,
+                  D=128, block=16, max_blocks=128, seed=90):
+    """The phi3 cells' shapes: a decode step of 64 rows over 128-entry
+    tables (rows 60-63 inactive: on the scratch block at length 0), or
+    one 512-token chunk from position 700, right-padded past 300. Returns
+    (q, k, v, arenas, tables, start, n_valid, positions)."""
+    rng = np.random.default_rng(seed)
+    B, S = (1, 512) if chunk else (64, 1)
+    n_blocks = B * max_blocks
+
+    def t(shape, dt):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device, dt)
+    q = t((B, S, n_q, D), dtype)
+    k, v = t((B, S, n_kv, D), dtype), t((B, S, n_kv, D), dtype)
+    arenas = [t((n_blocks + 1, block, n_kv, D), arena_dtype)
+              for _ in range(2)]
+    tables = rng.permutation(n_blocks).reshape(B, max_blocks).astype(
+        np.int32)
+    if chunk:
+        start, n_valid = np.array([700]), np.array([300])
+    else:
+        start, n_valid = rng.integers(0, max_blocks * block - 1, B), None
+        tables[60:], start[60:] = n_blocks, 0
+    positions = start[:, None] + np.arange(S)[None, :]
+    dev = [torch.from_numpy(a).to(device) for a in (tables, start,
+                                                     positions)]
+    nv = None if n_valid is None else torch.from_numpy(n_valid).to(device)
+    return q, k, v, arenas, dev[0], dev[1], nv, dev[2]
+
+
+@pytest.mark.parametrize("rope", [True, False])
+@pytest.mark.parametrize("chunk", [False, True])
+@pytest.mark.parametrize("dtype,arena_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_rope_kv_write_kernel_bitwise_to_the_eager_ops(cuda, rope, chunk,
+                                                       dtype, arena_dtype):
+    """At the phi3 cells' head shape (30 q / 10 kv heads, D 128, block
+    16, 128 table entries), a 64-row decode step and a 512-token chunk
+    with padding: q and both arenas bitwise equal to ``_rope`` of q and
+    k and two ``paged_write``s on the card (the scratch block aside:
+    padded and inactive rows write it in any order)."""
+    q, k, v, (ka, va), tables, start, n_valid, positions = _rope_kv_case(
+        cuda, chunk, dtype, arena_dtype)
+    theta = 1e4
+    want_q, want_k = q, k
+    if rope:
+        want_q = L._rope(q, positions, theta)
+        want_k = L._rope(k, positions, theta)
+    want_ka = L.paged_write(ka.clone(), want_k, tables, start, n_valid)
+    want_va = L.paged_write(va.clone(), v, tables, start, n_valid)
+    spec = AttentionSpec(n_q=30, n_kv=10, head_dim=128, rope=rope,
+                         rope_theta=theta)
+    step = L.paged_step([spec], positions, ka, tables, start, n_valid)
+    cos_sin = step.rope[(theta, 64)] if rope else ()
+    got_q, got_ka, got_va = q.clone(), ka.clone(), va.clone()
+    counters.reset()
+    out = rkv_ops.rope_kv_write(got_q, k, v, got_ka, got_va, step.rows,
+                                *cos_sin)
+    torch.cuda.synchronize()
+    assert counters.snapshot() == {"rope_kv_write": 1}
+    assert out is got_q
+    assert torch.equal(got_q, want_q)
+    assert torch.equal(got_ka[:-1], want_ka[:-1])
+    assert torch.equal(got_va[:-1], want_va[:-1])
+    if not rope:
+        assert torch.equal(got_q, q)
+
+
+def test_rope_kv_write_kernel_raises_on_what_it_does_not_take(cuda):
+    q, k, v, (ka, va), tables, start, n_valid, positions = _rope_kv_case(
+        cuda, False, torch.bfloat16, torch.bfloat16, max_blocks=4)
+    spec = AttentionSpec(n_q=30, n_kv=10, head_dim=128)
+    step = L.paged_step([spec], positions, ka, tables, start, n_valid)
+    cos, sin = step.rope[(spec.rope_theta, 64)]
+    rows = step.rows
+    good = (q, k, v, ka, va, rows, cos, sin)
+    bad = [
+        tuple(a.cpu() for a in good),                       # device
+        (q, k, v, ka, va, rows.cpu(), cos, sin),            # mixed devices
+        (q.half(), k.half(), v.half(), ka, va, rows, cos, sin),  # dtype
+        (q, k.float(), v, ka, va, rows, cos, sin),          # mixed dtypes
+        (q, k, v, ka, va.float(), rows, cos, sin),          # arena dtypes
+        (q, k, v, ka, va, rows.int(), cos, sin),            # rows dtype
+        (q, k, v, ka, va, rows, cos.double(), sin.double()),  # table dtype
+        (q, k, v, ka, va, rows, cos, None),                 # one table
+        (q, k[:, :, :5], v, ka, va, rows, cos, sin),        # kv heads
+        (q, k, v, ka[..., :5, :], va, rows, cos, sin),      # arena heads
+        (q, k, v, ka, va[:-1], rows, cos, sin),             # arena shapes
+        (q, k, v, ka, va, rows[:-1], cos, sin),             # rows
+        (q, k, v, ka, va, rows, cos[..., :32], sin[..., :32]),  # table width
+        (q[..., :127].contiguous(), k[..., :127].contiguous(),
+         v[..., :127].contiguous(), ka[..., :127].contiguous(),
+         va[..., :127].contiguous(), rows, cos, sin),       # odd D
+        (q.transpose(2, 3).contiguous().transpose(2, 3), k, v, ka, va,
+         rows, cos, sin),                                   # layout
+    ]
+    counters.reset()
+    for args in bad:
+        with pytest.raises(ValueError):
+            rkv_kernel.rope_kv_write(*args)
+    assert counters.snapshot() == {}
+
+
+_ROPE_KV_BAD_ROW = """
+import sys, torch
+from repro_torch.kernels.rope_kv_write import kernel
+dev = torch.device("cuda")
+q = torch.ones((1, 1, 2, 16), device=dev)
+k, v = torch.ones((1, 1, 1, 16), device=dev), torch.ones((1, 1, 1, 16),
+                                                         device=dev)
+ka, va = torch.zeros((3, 4, 1, 16), device=dev), torch.zeros((3, 4, 1, 16),
+                                                             device=dev)
+kernel.rope_kv_write(q, k, v, ka, va, torch.tensor([[int(sys.argv[1])]],
+                                                   device=dev))
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised", e)
+    sys.exit(0)
+print("wrote", int((ka != 0).sum()), int((va != 0).sum()))
+"""
+
+
+@pytest.mark.parametrize("row", [-1, 11, 12])
+def test_rope_kv_write_kernel_fails_loudly_on_a_row_outside_the_arena(
+        cuda, row):
+    """A row outside the 12-row arena traps the kernel, an error at the
+    next sync (as the eager scatter's bounds assert does), and writes
+    nothing silently; the last row inside it is written. In a process of
+    its own: a trap leaves the CUDA context unusable."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    proc = subprocess.run([sys.executable, "-c", _ROPE_KV_BAD_ROW,
+                           str(row)], env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    if 0 <= row < 12:
+        assert proc.stdout.split() == ["wrote", "16", "16"]
+    else:
+        assert proc.stdout.startswith("raised"), proc.stdout
+
+
+@pytest.mark.parametrize("chunk", [False, True])
+def test_paged_forward_launches_rope_kv_write_once_a_layer(cuda, chunk):
+    """One paged forward at phi3's heads, a decode step through kernel 3
+    or a padded chunk through the gather path, launches rope_kv_write
+    once an attention layer, and gives logits and live arena blocks
+    bitwise equal to the eager path's (blocks given no step: eager RoPE,
+    then the plain scatter, in each layer). Inactive decode rows read the scratch block, which they
+    all write in any order, so their logits are left out."""
+    attn = AttentionSpec(n_q=30, n_kv=10, head_dim=128)
+    cfg = ModelConfig(name="phi3-heads", d_model=256, vocab=512,
+                      pattern=(LayerSpec(attn, MLPSpec(d_ff=256)),),
+                      n_periods=3, scan_layers=False)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    params = T.cast_params(T.init_model(gen, cfg), torch.bfloat16)
+    max_blocks = 128 if chunk else 8
+    _, _, _, _, tables, start, n_valid, positions = _rope_kv_case(
+        cuda, chunk, torch.bfloat16, torch.bfloat16, max_blocks=max_blocks)
+    B, S = positions.shape
+    tokens = torch.randint(0, cfg.vocab, (B, S), device=cuda, generator=gen)
+    pool = T.init_paged_pool(cfg, B * max_blocks, 16, torch.bfloat16, cuda)
+    for layer in pool:
+        for arena in layer["attn"].values():
+            arena.normal_(generator=gen)
+    eager_pool = [{"attn": {n: a.clone() for n, a in layer["attn"].items()}}
+                  for layer in pool]
+    with torch.no_grad():
+        counters.reset()
+        logits, _, _ = T.forward(params, cfg, tokens, cache=pool,
+                                 cache_index=start, block_tables=tables,
+                                 n_valid=n_valid, paged_kernel=True)
+        torch.cuda.synchronize()
+        launches = counters.snapshot()
+        x = params["embed"]["table"][tokens].to(torch.bfloat16)
+        for i, blk in enumerate(params["blocks"]):
+            x, _, _ = T.apply_block(blk, cfg, cfg.layer(i), x, positions,
+                                    eager_pool[i], start, layer=i,
+                                    block_tables=tables, n_valid=n_valid,
+                                    paged_kernel=True)
+        x = L.apply_norm(params["final_norm"], cfg.norm, x)
+        eager = x @ params["lm_head"]["w"]
+    want = {"rope_kv_write": cfg.n_layers}
+    if not chunk:
+        want["paged_attention"] = cfg.n_layers
+    assert launches == want
+    live = slice(None) if chunk else slice(0, 60)   # rows 60-63 inactive
+    assert torch.equal(logits[live], eager[live])
+    for got, ref in zip(pool, eager_pool):
+        for name in ("k", "v"):
+            assert torch.equal(got["attn"][name][:-1],
+                               ref["attn"][name][:-1])
 
 
 def _flash_inputs(B, S, group, n_kv, D, dtype, seed, device):
@@ -1296,6 +1501,11 @@ def kernel_op_cases(device) -> dict:
               stack.scales)
     xt, da, Bm, Cm, _ = _ssd_case(1, 32, 2, 16, 8, 70, False,
                                   torch.float32, device)
+    rq, rk, rv, (rka, rva), rtables, rstart, _, rpos = _rope_kv_case(
+        device, False, torch.float32, torch.float32, n_q=4, n_kv=2, D=16,
+        max_blocks=2)
+    rstep = L.paged_step([AttentionSpec(n_q=4, n_kv=2, head_dim=16)], rpos,
+                         rka, rtables, rstart)
     return {
         "block_sparse": (bs_ops.blocksparse_matmul,
                          (t(x), t(w), t(counts), t(indices), 16)),
@@ -1320,13 +1530,17 @@ def kernel_op_cases(device) -> dict:
             gbs_ops.quant_ragged_blocksparse_matmul,
             (xp[:, :64].contiguous(), *qtiles, te, 16)),
         "ssd_scan": (ssd_ops.ssd_scan, (xt, da, Bm, Cm, 8)),
+        "rope_kv_write": (rkv_ops.rope_kv_write,
+                          (rq, rk, rv, rka, rva, rstep.rows,
+                           *rstep.rope[(1e4, 8)])),
     }
 
 
 KERNEL_OPS = ("block_sparse", "block_sparse_quant", "wanda_partials",
               "paged_attention", "flash_attention", "grouped_block_sparse",
               "grouped_block_sparse_ragged", "grouped_block_sparse_quant",
-              "grouped_block_sparse_ragged_quant", "ssd_scan")
+              "grouped_block_sparse_ragged_quant", "ssd_scan",
+              "rope_kv_write")
 
 
 def check_op_refuses_grad(device, kernel: str) -> dict:
@@ -1361,7 +1575,6 @@ def test_train_step_on_the_card_launches_no_kernel(cuda):
     DENSE_ATTN_MAX positions, an MoE layer and a Mamba layer takes the
     plain paths (no launch) and gives finite metrics; the same tokens
     through a serving forward launch kernels 4 and 10."""
-    from repro_torch.models.specs import AttentionSpec, MLPSpec
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import (init_train_state,
                                               make_train_step)
@@ -1440,7 +1653,6 @@ def test_sharded_forward_launches_flash_on_local_shards(nccl_mesh):
     often as the unsharded forward does, with the same logits."""
     from repro_torch.distributed import axes as AX
     from repro_torch.distributed import sharding as SH
-    from repro_torch.models.specs import AttentionSpec, MLPSpec
     cfg = ModelConfig(
         name="t", d_model=128, vocab=256, vocab_pad_multiple=16,
         pattern=(LayerSpec(AttentionSpec(n_q=4, n_kv=2, head_dim=64),
